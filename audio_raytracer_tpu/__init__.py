@@ -1,4 +1,4 @@
-"""audio_raytracer_tpu — a TPU-native differentiable audio ray tracing framework.
+"""audio_raytracer_tpu — a differentiable audio ray tracing framework.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 FirePixel8422/Audio-Raytracer (a Unity Burst/Jobs CPU audio ray tracer):
@@ -16,9 +16,9 @@ FirePixel8422/Audio-Raytracer (a Unity Burst/Jobs CPU audio ray tracer):
   (reference: Assets/C# Scripts/Audio/AudioTarget/*.cs)
 
 The compute path is pure-functional JAX (scene = arrays, kernels = pure
-functions, bounce loop = lax.scan) with Pallas TPU kernels for the hot
-rays x primitives grid, sharded across device meshes with shard_map and
-XLA collectives. See SURVEY.md for the full design rationale.
+functions, bounce loop = lax.scan) with Pallas kernels (Triton route,
+for NVIDIA GPUs) on the hot rays x primitives loops, sharded across
+device meshes with shard_map and XLA collectives. See SURVEY.md for the full design rationale.
 """
 
 from audio_raytracer_tpu.types import (

@@ -6,8 +6,8 @@ Steel, Echo) tuned by ear. This framework makes them LEARNABLE
 (BASELINE config 4): trace the target loudness map with the scene's
 authored materials, reinitialize (or perturb) the material parameters,
 and recover them by gradient descent through the differentiable tracer
-(models/differentiable.py — hand-closed chord adjoints on the kernel
-tier, straight-through trajectories).
+(models/differentiable.py — straight-through trajectories, chord
+gradients through the plain fold's VJP on the kernel tier).
 
 Usage:
   python -m audio_raytracer_tpu.demo.train_materials            # sample
@@ -183,6 +183,10 @@ def main():
     p.add_argument("--pose-perturbation", type=float, default=0.8,
                    help="seeded perturbation magnitude for --recover-pose")
     args = p.parse_args()
+
+    from audio_raytracer_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     if args.recover_pose:
         _recover_pose(args)

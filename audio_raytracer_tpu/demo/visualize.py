@@ -292,6 +292,10 @@ def main():
     p.add_argument("--history-out", default="history.png", metavar="PATH")
     args = p.parse_args()
 
+    from audio_raytracer_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+
     from audio_raytracer_tpu.demo.sample_scene import sample_scene_dict
     from audio_raytracer_tpu.demo.scene_format import (
         build_registry,

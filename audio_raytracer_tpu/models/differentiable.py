@@ -154,16 +154,9 @@ def loudness_map(origin: Array, directions: Array, scene: Scene,
             jax.lax.pcast(x, pvary_axes, to="varying")
             for x in (o0, life0, alive0, e0))
 
-    # Shallow bounce loops unroll ON DEVICE (same policy + measured ~1%
-    # win as ops/trace.py — the unrolled linearization also tightens
-    # the backward-scan residue's run-to-run spread at the 1M
-    # headline); rolled on the CPU backend, where the H-times-larger
-    # differentiated programs flakily segfault XLA's CPU compiler in
-    # long-lived test processes (see ops/trace.py).
     _, (t_all, echo_v, echo_w, muffle_c) = jax.lax.scan(
         bounce, (o0, directions, life0, alive0, e0), jnp.arange(H),
-        length=H,
-        unroll=H if (H <= 8 and jax.default_backend() != "cpu") else 1)
+        length=H)
 
     # Permeation (differentiable, per-ray mean — no overwrite quirk here).
     # The primary-ray first hit is the scan's bounce-0 distance: no second
@@ -217,17 +210,17 @@ def loudness_map(origin: Array, directions: Array, scene: Scene,
 
 def _make_backend_fn(backend: str, pose_grads: bool):
     """Resolve a backend name to a scene -> engine factory for the
-    differentiable train/recovery steps: None for "jnp" (XLA dense),
-    else the custom-VJP kernel tier (``pose_grads`` selects the full
-    ray-cotangent adjoint over the cheap density-only one)."""
+    differentiable train/recovery steps: None for "jnp" (the plain
+    engine), else the kernel tier (``pose_grads=False`` prunes the
+    chord backward's ray cotangents)."""
     if backend == "jnp":
         return None
     if backend not in ("pallas", "pallas_interpret"):
         raise ValueError(f"unknown backend {backend!r}")
-    from audio_raytracer_tpu.ops.pallas import make_pallas_backend
+    from audio_raytracer_tpu.ops.pallas import PallasBackend
 
     def backend_fn(s):
-        return make_pallas_backend(
+        return PallasBackend(
             s, interpret=(backend == "pallas_interpret"),
             differentiable=True, pose_grads=pose_grads)
 
@@ -258,9 +251,9 @@ def make_train_step(cfg: TraceConfig, optimizer=None,
                     backend: str = "jnp", pose_grads: bool = False):
     """Jitted single-device training step (full backward).
 
-    ``backend``: "jnp" (XLA dense) or "pallas"/"pallas_interpret" (the
-    differentiable kernel tier — custom-VJP chord adjoints; set
-    ``pose_grads`` when the loss also differentiates w.r.t. poses)."""
+    ``backend``: "jnp" (the plain engine) or "pallas"/"pallas_interpret"
+    (the differentiable kernel tier; set ``pose_grads`` when the loss
+    also differentiates w.r.t. poses)."""
     if optimizer is None:
         optimizer = optax.adam(1e-2)
     backend_fn = _make_backend_fn(backend, pose_grads=pose_grads)
@@ -318,8 +311,8 @@ def make_pose_recovery_step(cfg: TraceConfig, optimizer=None,
     ``recover`` selects which pose leaves receive updates ("origin",
     "targets", or both); the others keep their value (their gradients
     are zeroed before the optimizer, so optimizer moments stay clean).
-    Kernel-tier backends are built with pose_grads=True (the FULL
-    hand-closed adjoint — ray cotangents + rotation pullbacks)."""
+    Kernel-tier backends are built with pose_grads=True (ray
+    cotangents of the chord backward kept)."""
     if optimizer is None:
         optimizer = optax.adam(1e-2)
     backend_fn = _make_backend_fn(backend, pose_grads=True)

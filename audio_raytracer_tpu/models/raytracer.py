@@ -39,12 +39,10 @@ def _make_backend(scene: Scene, backend: str, cfg: TraceConfig | None = None):
     if backend == "jnp" or scene.num_primitives == 0:
         return None  # trace/permeation default to DenseBackend
     if backend in ("pallas", "pallas_interpret"):
-        # Factory: plain PallasBackend when the scene fits the SMEM
-        # budget, ChunkedPallasBackend (HBM chunk streaming) beyond it.
-        from audio_raytracer_tpu.ops.pallas import make_pallas_backend
+        from audio_raytracer_tpu.ops.pallas import PallasBackend
 
         dtype = cfg.compute_jnp_dtype if cfg is not None else None
-        return make_pallas_backend(
+        return PallasBackend(
             scene, interpret=(backend == "pallas_interpret"),
             **({} if dtype is None else {"compute_dtype": dtype}))
     raise ValueError(f"unknown backend {backend!r}")
@@ -58,8 +56,8 @@ def forward(origin: Array, directions: Array, scene: Scene, cfg: TraceConfig,
     Equivalent to one cycle of AudioRaytracerJobBatched ||
     AudioPermeationJobBatched -> ProcessAudioDataJob.
 
-    ``backend``: "jnp" (XLA-fused baseline) or "pallas" (streaming TPU
-    kernels; "pallas_interpret" for CPU debugging).
+    ``backend``: "jnp" (the plain engine XLA compiles) or "pallas" (the
+    Triton-route kernels; "pallas_interpret" for CPU debugging).
     """
     be = _make_backend(scene, backend, cfg)
     result = trace_op.trace(origin, directions, scene, cfg,

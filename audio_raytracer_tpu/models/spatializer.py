@@ -4,8 +4,8 @@ Functional JAX re-design of the reference audio-thread chain
 (Audio/AudioTarget/AudioSpatializer.cs:70-87, MuffleDSP.cs, ReverbDSP.cs,
 BinauralDSP.cs). Each one-pole IIR is a *linear recurrence*
 y_i = a*y_{i-1} + b_i, evaluated with ``jax.lax.associative_scan`` —
-log-depth on TPU instead of a sample-serial loop — and the filter state
-threads across buffers exactly like the C# structs' fields.
+log-depth on the device instead of a sample-serial loop — and the filter
+state threads across buffers exactly like the C# structs' fields.
 
 Semantics replicated:
 - Muffle LP: cutoff = lerp(cutoff_MAX, cutoff_MIN, curve(muffleStrength)),

@@ -48,7 +48,16 @@ def safe_normalize(x: Array, eps=1e-20) -> Array:
 
 # ---------------------------------------------------------------------------
 # Primitive t-grids: rays [R, 3] x prims [N, ...] -> t [R, N] (+inf = miss)
+#
+# Sums and extrema over the xyz axis are written per component, so every
+# [R, N] grid is elementwise in its inputs and XLA fuses it into the
+# reduction that consumes it instead of materializing [R, N, 3] terms.
 # ---------------------------------------------------------------------------
+
+
+def _dot3(a: Array, b: Array) -> Array:
+    return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]
+            + a[..., 2] * b[..., 2])
 
 
 def _aabb_slab(o, d, center, half_extents):
@@ -69,8 +78,10 @@ def _aabb_slab(o, d, center, half_extents):
     t1 = (center + half_extents - o) * inv_d
     tmin = jnp.minimum(t0, t1)
     tmax = jnp.maximum(t0, t1)
-    t_near = jnp.max(tmin, axis=-1)
-    t_far = jnp.min(tmax, axis=-1)
+    t_near = jnp.maximum(jnp.maximum(tmin[..., 0], tmin[..., 1]),
+                         tmin[..., 2])
+    t_far = jnp.minimum(jnp.minimum(tmax[..., 0], tmax[..., 1]),
+                        tmax[..., 2])
     return t_near, t_far
 
 
@@ -111,9 +122,9 @@ def sphere_t(o: Array, d: Array, center: Array, radius: Array,
     o,d: [R,3]; center: [N,3]; radius: [N] -> [R,N].
     """
     oc = o[..., None, :] - center  # [R, N, 3]
-    a = jnp.sum(d * d, axis=-1)[..., None]  # [R, 1]
-    b = 2.0 * jnp.sum(oc * d[..., None, :], axis=-1)  # [R, N]
-    c = jnp.sum(oc * oc, axis=-1) - radius * radius  # [R, N]
+    a = _dot3(d, d)[..., None]  # [R, 1]
+    b = 2.0 * _dot3(oc, d[..., None, :])  # [R, N]
+    c = _dot3(oc, oc) - radius * radius  # [R, N]
     disc = b * b - 4.0 * a * c
     # Double-where keeps the backward pass NaN-free: sqrt'(0) = inf would
     # otherwise meet the zero cotangent of missed lanes as inf * 0 = NaN.
@@ -193,6 +204,55 @@ def any_hit_within(o: Array, d: Array, limit: Array, scene: Scene,
 # ---------------------------------------------------------------------------
 
 
+def _skip_chords(loss, prims, skip_target_id):
+    if skip_target_id is None:
+        return loss
+    skip = jnp.asarray(skip_target_id)[..., None]
+    return jnp.where(skip == prims.target_id, 0.0, loss)
+
+
+def sphere_chords(o: Array, d: Array, spheres,
+                  skip_target_id: Array | None = None) -> Array:
+    """[R, N] chord length x density through each sphere: half-b
+    quadratic, d normalized (AudioPermeationJobBatched.cs:303-328)."""
+    oc = o[..., None, :] - spheres.center
+    b = _dot3(oc, d[..., None, :])
+    c = _dot3(oc, oc) - spheres.radius ** 2
+    disc = b * b - c
+    hit_disc = disc >= 0.0
+    sqrt_disc = jnp.sqrt(jnp.where(hit_disc, disc, 1.0))
+    t_enter = -b - sqrt_disc
+    t_exit = -b + sqrt_disc
+    chord = jnp.maximum(0.0, t_exit - jnp.maximum(t_enter, 0.0))
+    valid = hit_disc & (t_exit >= 0.0) & spheres.active
+    loss = jnp.where(valid, chord, 0.0) * spheres.material.density
+    return _skip_chords(loss, spheres, skip_target_id)
+
+
+def _box_chords(near, far, boxes, skip_target_id):
+    chord = jnp.maximum(0.0, far - jnp.maximum(near, 0.0))
+    valid = (near <= far) & (far >= 0.0) & boxes.active
+    loss = jnp.where(valid, chord, 0.0) * boxes.material.density
+    return _skip_chords(loss, boxes, skip_target_id)
+
+
+def aabb_chords(o: Array, d: Array, aabbs,
+                skip_target_id: Array | None = None) -> Array:
+    """[R, N] chord length x density through each AABB (cs:265-288)."""
+    near, far = _aabb_slab(o[..., None, :], d[..., None, :], aabbs.center,
+                           aabbs.half_extents)
+    return _box_chords(near, far, aabbs, skip_target_id)
+
+
+def obb_chords(o: Array, d: Array, obbs,
+               skip_target_id: Array | None = None) -> Array:
+    """[R, N] chord length x density through each OBB (cs:294-300)."""
+    local_o = quaternion.rotate(obbs.inv_rot, o[..., None, :] - obbs.center)
+    local_d = quaternion.rotate(obbs.inv_rot, d[..., None, :])
+    near, far = _aabb_slab(local_o, local_d, 0.0, obbs.half_extents)
+    return _box_chords(near, far, obbs, skip_target_id)
+
+
 def permeation_loss(o: Array, d: Array, scene: Scene,
                     skip_target_id: Array | None = None) -> Array:
     """Total permeation power loss per ray: sum over primitives of
@@ -202,56 +262,24 @@ def permeation_loss(o: Array, d: Array, scene: Scene,
     o, d: [R, 3] (d normalized — sphere test assumes |d| = 1).
     Returns [R].
     """
-    o_b = o[..., None, :]
-    d_b = d[..., None, :]
-
-    # Spheres: half-b quadratic (cs:303-328).
-    oc = o_b - scene.spheres.center
-    b = jnp.sum(oc * d_b, axis=-1)
-    c = jnp.sum(oc * oc, axis=-1) - scene.spheres.radius ** 2
-    disc = b * b - c
-    hit_disc = disc >= 0.0
-    sqrt_disc = jnp.sqrt(jnp.where(hit_disc, disc, 1.0))
-    t_enter = -b - sqrt_disc
-    t_exit = -b + sqrt_disc
-    s_chord = jnp.maximum(0.0, t_exit - jnp.maximum(t_enter, 0.0))
-    s_valid = hit_disc & (t_exit >= 0.0) & scene.spheres.active
-    s_loss = jnp.where(s_valid, s_chord, 0.0) * scene.spheres.material.density
-
-    # AABBs (cs:265-288).
-    a_near, a_far = _aabb_slab(o_b, d_b, scene.aabbs.center,
-                               scene.aabbs.half_extents)
-    a_chord = jnp.maximum(0.0, a_far - jnp.maximum(a_near, 0.0))
-    a_valid = (a_near <= a_far) & (a_far >= 0.0) & scene.aabbs.active
-    a_loss = jnp.where(a_valid, a_chord, 0.0) * scene.aabbs.material.density
-
-    # OBBs (cs:294-300).
-    local_o = quaternion.rotate(scene.obbs.inv_rot, o_b - scene.obbs.center)
-    local_d = quaternion.rotate(scene.obbs.inv_rot, d_b)
-    b_near, b_far = _aabb_slab(local_o, local_d, 0.0, scene.obbs.half_extents)
-    b_chord = jnp.maximum(0.0, b_far - jnp.maximum(b_near, 0.0))
-    b_valid = (b_near <= b_far) & (b_far >= 0.0) & scene.obbs.active
-    b_loss = jnp.where(b_valid, b_chord, 0.0) * scene.obbs.material.density
-
-    if skip_target_id is not None:
-        skip = jnp.asarray(skip_target_id)[..., None]
-        s_loss = jnp.where(skip == scene.spheres.target_id, 0.0, s_loss)
-        a_loss = jnp.where(skip == scene.aabbs.target_id, 0.0, a_loss)
-        b_loss = jnp.where(skip == scene.obbs.target_id, 0.0, b_loss)
-
-    return (jnp.sum(s_loss, axis=-1) + jnp.sum(a_loss, axis=-1)
-            + jnp.sum(b_loss, axis=-1))
+    return (jnp.sum(sphere_chords(o, d, scene.spheres, skip_target_id),
+                    axis=-1)
+            + jnp.sum(aabb_chords(o, d, scene.aabbs, skip_target_id),
+                      axis=-1)
+            + jnp.sum(obb_chords(o, d, scene.obbs, skip_target_id),
+                      axis=-1))
 
 
 def primitive_t_per_ray(o: Array, d: Array, kind: Array, center: Array,
                         half_extents: Array, inv_rot: Array) -> Array:
     """Differentiable hit distance of one SELECTED primitive per ray.
 
-    The winner-recompute trick: the Pallas closest-hit kernel provides the
-    argmin selection (non-differentiable), then this O(R) jnp recompute of
-    the winner's t makes the distance differentiable in ray origin /
-    direction and the gathered primitive geometry — gradients to listener
-    and collider poses without differentiating the O(R*P) kernel.
+    The winner-recompute trick: the chunked fold or the closest-hit
+    kernel provides the argmin selection (non-differentiable), then this
+    O(R) jnp recompute of the winner's t makes the distance
+    differentiable in ray origin / direction and the gathered primitive
+    geometry — gradients to listener and collider poses without
+    differentiating (or keeping residuals of) the O(R*P) search.
 
     o, d: [R, 3]; kind/center/half_extents/inv_rot: per-ray gathered winner
     attributes (ops.intersect.unified_arrays layout: sphere radius is
@@ -344,8 +372,7 @@ def packed_unified_table(uni: dict):
 
     Columns: kind, center xyz, half_extents xyz, inv_rot xyzw, absorption,
     echo (13 used; padded to 16). One row gather replaces 13 scalar-table
-    gathers on the per-ray winner index — the scalar gathers dominated
-    trace overhead at small ray counts on TPU.
+    gathers on the per-ray winner index.
     """
     P = uni["kind"].shape[0]
     cols = [uni["kind"].astype(jnp.float32)[:, None],

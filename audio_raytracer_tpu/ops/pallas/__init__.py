@@ -1,7 +1,3 @@
 from audio_raytracer_tpu.ops.pallas.backend import PallasBackend
-from audio_raytracer_tpu.ops.pallas.chunked import (
-    ChunkedPallasBackend,
-    make_pallas_backend,
-)
 
-__all__ = ["PallasBackend", "ChunkedPallasBackend", "make_pallas_backend"]
+__all__ = ["PallasBackend"]

@@ -1,10 +1,10 @@
-"""PallasBackend: the TPU-kernel intersection engine.
+"""PallasBackend: the plain engine with its hot stages on kernels.
 
 Drop-in replacement for ops.backend.DenseBackend behind the same
-protocol, backed by the streaming rays x prims kernels in
-ops.pallas.kernels. Field preparation (padding to sublane chunks,
-min/max precompute, miss encodings) happens at trace time inside jit —
-it is O(P) and fuses away.
+protocol. It IS a DenseBackend: every stage without a kernel runs the
+plain path, and the kernel stages (closest hit, fused occlusion, fused
+chords; ops.pallas.kernels) are compared against it. Table packing
+happens at trace time inside jit — it is O(P) and fuses away.
 """
 
 from __future__ import annotations
@@ -13,228 +13,56 @@ import jax
 import jax.numpy as jnp
 
 from audio_raytracer_tpu.ops import intersect
-from audio_raytracer_tpu.ops import quaternion
-from audio_raytracer_tpu.ops.backend import NO_SKIP
-from audio_raytracer_tpu.ops.pallas import fused as F
+from audio_raytracer_tpu.ops.backend import DenseBackend
 from audio_raytracer_tpu.ops.pallas import kernels as K
 from audio_raytracer_tpu.types import Scene
 
 Array = jnp.ndarray
 
 
-def build_attr_tabs(uni: dict, total: int):
-    '''(geom_tab [P, 12] stop-gradded, mat_tab [P, 2] differentiable)
-    winner-gather tables from unified arrays.
-
-    Geometry columns are never differentiated (pose gradients flow
-    through the o/d winner recompute; the BASELINE gradient surface is
-    materials + source/listener poses), so gathering them from a
-    stop-gradded table prunes their transpose -- a [R, 12] scatter-add
-    per bounce (~32 ms/bounce at 1M rays x 4K prims) -- from every
-    backward pass. Materials ride a separate differentiable [P, 2]
-    gather. Shared by PallasBackend and ChunkedPallasBackend.
-    '''
-    geom = jax.lax.stop_gradient(jnp.concatenate(
-        [uni["kind"].astype(jnp.float32)[:, None], uni["center"],
-         uni["half_extents"], uni["inv_rot"],
-         jnp.zeros((total, 1), jnp.float32)], axis=1))
-    mat = jnp.stack([uni["absorption"], uni["echo"]], axis=1)
-    return geom, mat
-
-
-def attrs_from_tabs(geom_tab: Array, mat_tab: Array, idx: Array) -> dict:
-    '''Per-ray winner attribute dict from one [.., 12] + [.., 2] gather.'''
-    geom = geom_tab[idx]
-    mat = mat_tab[idx]
-    return dict(
-        kind=geom[..., 0].astype(jnp.int32),
-        center=geom[..., 1:4],
-        half_extents=geom[..., 4:7],
-        inv_rot=geom[..., 7:11],
-        absorption=mat[..., 0],
-        echo=mat[..., 1],
-    )
-
-
-class PallasBackend:
-    """All primitives visible locally, intersections on the Pallas tier.
+class PallasBackend(DenseBackend):
+    """All primitives visible locally, hot stages on the kernel tier.
 
     ``interpret=True`` runs the kernels in the Pallas interpreter
     (CPU-testable parity path).
 
-    ``differentiable=True`` enables gradient flow at O(R+P) memory:
-    closest-hit distances are recomputed differentiably for the kernel's
-    winner (ops.intersect.primitive_t_per_ray — gradients to poses and
-    winner geometry), permeation goes through the chord_loss custom_vjp
-    (gradients to material density), and material absorption/echo flow
-    through the unified-attribute gathers as always. Occlusion booleans
-    stay straight-through (no tangents), matching models.differentiable.
-    Forward values are unchanged up to float associativity.
+    ``differentiable=True`` enables gradient flow at O(R) memory per
+    primitive chunk: closest-hit distances are recomputed differentiably
+    for the kernel's winner (ops.intersect.primitive_t_per_ray —
+    gradients to poses and winner geometry); permeation runs the chord
+    kernel forward and the VJP of the plain chunked chord fold backward
+    (ops.pallas.diff — gradients to material density and ray
+    origins/directions); material absorption/echo flow through the
+    unified-attribute gathers as always. Occlusion booleans stay
+    straight-through (no tangents), matching models.differentiable.
 
-    Gradient-surface contract (differentiable=True):
+    - ``pose_grads=False`` (materials-only training) stops the gradient
+      on the permeation rays, so XLA prunes the ray cotangents of the
+      chord backward. Only set it when ray positions are independent of
+      the differentiated parameters (true for material optimization;
+      NOT for source or listener pose optimization).
 
-    - Supported cotangents: material absorption/density/echo, ray
-      origins/directions (and through them source/listener poses), and
-      winner-primitive geometry via the closest-hit recompute.
-    - Collider geometry reached ONLY through closest-hit *attrs*
-      (center/half_extents/inv_rot of non-winning uses) is gathered from
-      a stop-gradded table (``_geom_tab``) — its pose cotangents are
-      intentionally zero here, unlike DenseBackend. The BASELINE gradient
-      surface (materials + source/listener poses) never needs them, and
-      pruning the [R, 12]-per-bounce gather transpose saves ~32 ms/bounce
-      at the 1M x 4K headline. Use DenseBackend to differentiate collider
-      poses through attrs.
-    - ``pose_grads=False`` (materials-only training) runs the cheaper
-      density-only chord adjoint: d_origin / d_direction cotangents from
-      the permeation path come back **zero**, not an error. Only set it
-      when ray positions are independent of the differentiated
-      parameters (true for material optimization; NOT for source or
-      listener pose optimization — keep pose_grads=True there).
-
-    ``compute_dtype`` coverage: the bf16 tier applies to closest-hit and
-    the fused multi-set kernels (multi_occluded / multi_permeation_loss)
-    — the hot per-bounce paths. The legacy single-set ``occluded()`` /
-    ``permeation_loss()`` wrappers always run f32 (they are off the
-    per-bounce hot path; see ops/pallas/kernels.py for why bf16 is net
-    slower anyway).
+    ``compute_dtype`` (f32 or bf16) applies to the forward kernels; the
+    differentiable tier runs f32.
     """
+
+    supports_block_skip = True
+    fused_sets = True
 
     def __init__(self, scene: Scene, interpret: bool = False,
                  differentiable: bool = False,
                  compute_dtype=jnp.float32, pose_grads: bool = True):
-        self.scene = scene
+        super().__init__(scene)
         self.interpret = interpret
         self.differentiable = differentiable
-        # pose_grads=False (materials-only training): the chord adjoint
-        # skips its ray cotangents and runs the cheaper density-only
-        # backward kernel (ops/pallas/diff.multi_chord_loss).
         self.pose_grads = pose_grads
-        # bf16 = the 2x-throughput reduced-precision tier (the TPU analog
-        # of the reference's half storage, ColliderAABBStruct.cs:10-11).
-        # Only the non-differentiable forward kernels honor it; the
-        # custom-VJP chord path stays f32 so FD gradient checks hold.
-        self.compute_dtype = jnp.dtype(compute_dtype).type
-        if differentiable:
-            self.compute_dtype = jnp.float32
-
-        sp, ab, ob = scene.spheres, scene.aabbs, scene.obbs
-        ns, na, no = sp.count, ab.count, ob.count
-        self.counts = (ns, na, no)
-        self.total = ns + na + no
-
-        f32 = jnp.float32
-
-        def col(x, dtype=f32):
-            return jnp.asarray(x, dtype).reshape(-1)
-
-        # Bounding-sphere radii squared (with the conservative margin
-        # folded in) for the per-block convergence-hull culling of the
-        # fused occlusion kernels; -1 = inactive (always culled).
-        CULL_MARGIN = 1e-2
-
-        def br2(radii, active):
-            r = radii + CULL_MARGIN
-            return jnp.where(active, r * r, -1.0)
-
-        fields = {}
-        if ns:
-            r2 = jnp.where(sp.active, sp.radius * sp.radius, -1e30)
-            fields.update(
-                s_cx=col(sp.center[:, 0]),
-                s_cy=col(sp.center[:, 1]),
-                s_cz=col(sp.center[:, 2]),
-                s_r2=col(r2),
-                s_br2=col(br2(sp.radius, sp.active)),
-                s_tgt=col(sp.target_id, dtype=jnp.int32),
-                s_dens=col(sp.material.density),
-            )
-        if na:
-            fields.update(
-                a_minx=col(ab.center[:, 0] - ab.half_extents[:, 0]),
-                a_miny=col(ab.center[:, 1] - ab.half_extents[:, 1]),
-                a_minz=col(ab.center[:, 2] - ab.half_extents[:, 2]),
-                a_maxx=col(ab.center[:, 0] + ab.half_extents[:, 0]),
-                a_maxy=col(ab.center[:, 1] + ab.half_extents[:, 1]),
-                a_maxz=col(ab.center[:, 2] + ab.half_extents[:, 2]),
-                a_miss=col(jnp.where(ab.active, 0.0, jnp.inf)),
-                a_br2=col(br2(jnp.linalg.norm(ab.half_extents, axis=-1),
-                              ab.active)),
-                a_tgt=col(ab.target_id, dtype=jnp.int32),
-                a_dens=col(ab.material.density),
-            )
-        if no:
-            # World->local rotation baked to matrix rows: the kernels
-            # rotate with 9 SMEM scalars / 15 fused mul-adds per vector
-            # (quaternion.to_matrix of the pre-inverted quaternion,
-            # mirroring AudioOBBCollider.cs:59's bake-time inverse).
-            M = quaternion.to_matrix(jnp.asarray(ob.inv_rot, f32))
-            fields.update(
-                o_cx=col(ob.center[:, 0]),
-                o_cy=col(ob.center[:, 1]),
-                o_cz=col(ob.center[:, 2]),
-                o_hx=col(ob.half_extents[:, 0]),
-                o_hy=col(ob.half_extents[:, 1]),
-                o_hz=col(ob.half_extents[:, 2]),
-                o_m00=col(M[:, 0, 0]), o_m01=col(M[:, 0, 1]),
-                o_m02=col(M[:, 0, 2]),
-                o_m10=col(M[:, 1, 0]), o_m11=col(M[:, 1, 1]),
-                o_m12=col(M[:, 1, 2]),
-                o_m20=col(M[:, 2, 0]), o_m21=col(M[:, 2, 1]),
-                o_m22=col(M[:, 2, 2]),
-                o_miss=col(jnp.where(ob.active, 0.0, jnp.inf)),
-                o_br2=col(br2(jnp.linalg.norm(ob.half_extents, axis=-1),
-                              ob.active)),
-                o_tgt=col(ob.target_id, dtype=jnp.int32),
-                o_dens=col(ob.material.density),
-            )
-        self._fields = fields
-
-        smem_bytes = sum(4 * v.shape[0] for v in fields.values())
-        # Self-check the published per-type field counts against the
-        # actual dict so smem_bytes() can never silently drift from the
-        # layout above (ChunkedPallasBackend sizes its chunks with it).
-        assert smem_bytes == self.smem_bytes(ns, na, no), (
-            f"PallasBackend.smem_bytes field counts are stale: actual "
-            f"{smem_bytes} B vs predicted {self.smem_bytes(ns, na, no)} B "
-            f"for counts {self.counts}")
-        if differentiable:
-            # The chord adjoint kernels pad each type stream up to a
-            # DENS_CHUNK multiple (fused._pad_prims_to_chunks), so the
-            # gradient path streams slightly more SMEM than the raw
-            # field dict — budget-check the padded counts so a
-            # near-budget scene cannot pass init and fail (or exceed
-            # the guaranteed fit) only when the backward runs.
-            ck = [-(-n // F.DENS_CHUNK) * F.DENS_CHUNK if n else 0
-                  for n in (ns, na, no)]
-            smem_bytes = max(smem_bytes, self.smem_bytes(*ck))
-        assert smem_bytes <= K.SMEM_BYTES, (
-            f"primitive fields ({smem_bytes} B"
-            f"{', incl. adjoint chunk padding' if differentiable else ''})"
-            f" exceed the SMEM budget "
-            f"({K.SMEM_BYTES} B); use ops.pallas.make_pallas_backend "
-            f"(single-chip HBM chunk streaming, ChunkedPallasBackend) or "
-            f"shard the primitive axis (parallel.mesh / "
-            f"PrimShardedBackend)")
-
-        # Closest-hit / any-hit kernels are differentiated via recompute /
-        # straight-through, never through the pallas_call itself — sever
-        # any tangents on their inputs so jax.grad never reaches them.
-        # Chord fields stay live: chord_loss (custom_vjp) owns their AD.
-        sg = jax.lax.stop_gradient
-        self._sg_fields = {k: sg(v) for k, v in fields.items()}
-        self._chord_fields = fields
-
-        # Unified attribute arrays (rank order [sphere, aabb, obb]) for
-        # winner gathers — the same layout as the dense backend's, but
-        # row-packed so the winner gather is ONE [P,16] row gather.
-        self._uni = intersect.unified_arrays(scene) if self.total else None
-        self._packed = (intersect.packed_unified_table(self._uni)
-                        if self.total else None)
-        if self.total:
-            self._geom_tab, self._mat_tab = build_attr_tabs(self._uni,
-                                                            self.total)
-
-    # -- Local-engine protocol (for PrimShardedBackend delegation) ----------
+        self.compute_dtype = (jnp.float32 if differentiable
+                              else jnp.dtype(compute_dtype).type)
+        self.total = scene.num_primitives
+        # Kernel inputs never carry tangents: closest hit is
+        # differentiated by winner recompute, occlusion is
+        # straight-through, chords by the custom VJP in ops.pallas.diff.
+        self._tabs = K.pack_tables(jax.lax.stop_gradient(scene))
 
     @property
     def recompute_winner_t(self) -> bool:
@@ -242,142 +70,70 @@ class PallasBackend:
         must recompute the merged winner's t differentiably."""
         return self.differentiable
 
-    # Fully-dead ray blocks skip the primitive stream (closest_hit) or
-    # resolve from their init bits (multi_occluded) — ops.trace compacts
-    # by aliveness between bounces so this actually fires.
-    supports_block_skip = True
-
-    # Scalar fields per primitive of each type in the __init__ dict
-    # (sphere: cx,cy,cz,r2,br2,tgt,dens; AABB: 6 bounds,miss,br2,tgt,
-    # dens; OBB: center 3, half 3, matrix 9, miss,br2,tgt,dens) —
-    # self-checked against the actual dict at construction.
-    SPHERE_FIELDS = 7
-    AABB_FIELDS = 10
-    OBB_FIELDS = 19
-
-    @classmethod
-    def smem_bytes(cls, ns: int, na: int, no: int) -> int:
-        """SMEM bytes the field dict needs for these type counts."""
-        return 4 * (cls.SPHERE_FIELDS * ns + cls.AABB_FIELDS * na
-                    + cls.OBB_FIELDS * no)
+    def _kernel_closest(self, o, d, alive=None):
+        sg = jax.lax.stop_gradient
+        t, rank = K.run_closest_hit(
+            self._tabs, sg(o.astype(jnp.float32)), sg(d.astype(jnp.float32)),
+            alive=alive, interpret=self.interpret, dtype=self.compute_dtype)
+        return t, jnp.minimum(rank, self.total - 1)
 
     def local_closest(self, o: Array, d: Array, alive: Array | None = None):
         """(t [R] (+inf miss), idx [R] clamped local winner index)."""
-        sg = jax.lax.stop_gradient
-        t, rank = K.run_closest_hit(self._sg_fields, self.counts,
-                                    sg(o.astype(jnp.float32)),
-                                    sg(d.astype(jnp.float32)),
-                                    interpret=self.interpret,
-                                    dtype=self.compute_dtype,
-                                    alive=alive)
-        return t, jnp.minimum(rank, self.total - 1)
-
-    def attr_rows(self, idx: Array) -> Array:
-        return self._packed[idx]
-
-    # -- Backend protocol ---------------------------------------------------
+        return self._kernel_closest(o, d, alive)
 
     def closest_hit(self, o: Array, d: Array, alive: Array | None = None):
         if self.total == 0:
-            z3 = jnp.zeros(o.shape, o.dtype)
-            t = jnp.full(o.shape[:-1], jnp.inf, o.dtype)
-            attrs = dict(kind=jnp.zeros(t.shape, jnp.int32), center=z3,
-                         half_extents=z3,
-                         inv_rot=jnp.zeros(o.shape[:-1] + (4,), o.dtype),
-                         absorption=jnp.zeros_like(t),
-                         echo=jnp.zeros_like(t))
-            return jnp.zeros(t.shape, bool), t, attrs
+            return super().closest_hit(o, d)
+        t, idx = self._kernel_closest(o, d, alive)
+        # Geometry columns gather from a stop-gradded table: pose
+        # gradients flow through the o/d winner recompute, materials
+        # through their own gather (the BASELINE gradient surface).
+        u = self._uni
         sg = jax.lax.stop_gradient
-        o32, d32 = o.astype(jnp.float32), d.astype(jnp.float32)
-        t, rank = K.run_closest_hit(self._sg_fields, self.counts,
-                                    sg(o32), sg(d32),
-                                    interpret=self.interpret,
-                                    dtype=self.compute_dtype,
-                                    alive=alive)
-        idx = jnp.minimum(rank, self.total - 1)
-        attrs = attrs_from_tabs(self._geom_tab, self._mat_tab, idx)
+        attrs = dict(kind=u["kind"][idx], center=sg(u["center"])[idx],
+                     half_extents=sg(u["half_extents"])[idx],
+                     inv_rot=sg(u["inv_rot"])[idx],
+                     absorption=u["absorption"][idx], echo=u["echo"][idx])
         hit = jnp.isfinite(t)
         if self.differentiable:
-            # Winner-recompute: differentiable t from the gathered winner.
             t_rec = intersect.primitive_t_per_ray(
-                o32, d32, attrs["kind"], attrs["center"],
-                attrs["half_extents"], attrs["inv_rot"])
+                o.astype(jnp.float32), d.astype(jnp.float32), attrs["kind"],
+                attrs["center"], attrs["half_extents"], attrs["inv_rot"])
             t = jnp.where(hit, t_rec, jnp.inf)
         return hit, t, attrs
 
     def closest_t(self, o: Array, d: Array) -> Array:
-        if self.total == 0:
-            return jnp.full(o.shape[:-1], jnp.inf, o.dtype)
-        if self.differentiable:
-            _, t, _ = self.closest_hit(o, d)
-            return t
-        sg = jax.lax.stop_gradient
-        t, _ = K.run_closest_hit(self._sg_fields, self.counts,
-                                 sg(o.astype(jnp.float32)),
-                                 sg(d.astype(jnp.float32)),
-                                 interpret=self.interpret,
-                                 dtype=self.compute_dtype)
-        return t
+        return self.closest_hit(o, d)[1]
 
-    def occluded(self, o, d, limit, skip_target_id=None) -> Array:
-        if self.total == 0:
-            return jnp.zeros(o.shape[:-1], bool)
-        skip = NO_SKIP if skip_target_id is None else skip_target_id
-        sg = jax.lax.stop_gradient
-        return K.run_any_hit(self._sg_fields, self.counts,
-                             sg(o.astype(jnp.float32)),
-                             sg(d.astype(jnp.float32)),
-                             sg(jnp.asarray(limit, jnp.float32)), skip,
-                             interpret=self.interpret)
-
-    def permeation_loss(self, o, d, skip_target_id) -> Array:
-        if self.total == 0:
-            return jnp.zeros(o.shape[:-1], o.dtype)
-        skip = NO_SKIP if skip_target_id is None else skip_target_id
-        if self.differentiable:
-            from audio_raytracer_tpu.ops.pallas.diff import chord_loss
-
-            return chord_loss(self.counts, self.interpret,
-                              self._chord_fields, o.astype(jnp.float32),
-                              d.astype(jnp.float32), skip)
-        return K.run_chord_loss(self._chord_fields, self.counts,
-                                jax.lax.stop_gradient(o.astype(jnp.float32)),
-                                jax.lax.stop_gradient(d.astype(jnp.float32)),
-                                skip, interpret=self.interpret)
-
-    def multi_occluded(self, o, dirs, limits, skips, init_occ,
-                       conv_points=None) -> Array:
+    def multi_occluded(self, o, dirs, limits, skips, init_occ) -> Array:
         """Fused S-ray-set occlusion: one primitive stream per ray block
-        (ops.pallas.fused.multi_any_hit). Occlusion booleans are
-        straight-through (inputs severed from AD). ``conv_points``
-        ([S, 3] per-set ray endpoint) enables the per-block primitive
-        hull culling."""
+        (kernels.run_multi_any_hit); booleans are straight-through."""
         if self.total == 0:
             return init_occ
         sg = jax.lax.stop_gradient
-        return F.run_multi_any_hit(
-            self._sg_fields, self.counts, sg(o.astype(jnp.float32)),
+        return K.run_multi_any_hit(
+            self._tabs, sg(o.astype(jnp.float32)),
             [sg(d.astype(jnp.float32)) for d in dirs],
             sg(limits.astype(jnp.float32)), tuple(skips), init_occ,
-            interpret=self.interpret, dtype=self.compute_dtype,
-            conv_points=conv_points)
+            interpret=self.interpret, dtype=self.compute_dtype)
 
     def multi_permeation_loss(self, o, dirs, skips) -> Array:
-        """Fused S-target permeation (ops.pallas.fused.multi_chord); with
-        ``differentiable=True`` the hand-closed VJP kernel supplies
-        gradients to o, each direction set, and material density."""
+        """Fused S-target permeation (kernels.run_multi_chord); with
+        ``differentiable=True`` the VJP of the plain chord fold supplies
+        gradients to o, each direction set and the scene's materials."""
         if self.total == 0:
             return jnp.zeros(o.shape[:-1] + (len(dirs),), o.dtype)
+        o = o.astype(jnp.float32)
+        dirs = tuple(d.astype(jnp.float32) for d in dirs)
         if self.differentiable:
             from audio_raytracer_tpu.ops.pallas.diff import multi_chord_loss
 
-            return multi_chord_loss(
-                self.counts, tuple(skips), self.interpret,
-                not self.pose_grads, self._chord_fields,
-                o.astype(jnp.float32),
-                tuple(d.astype(jnp.float32) for d in dirs))
+            if not self.pose_grads:
+                o = jax.lax.stop_gradient(o)
+                dirs = tuple(jax.lax.stop_gradient(d) for d in dirs)
+            return multi_chord_loss(tuple(skips), self.interpret, o, dirs,
+                                    self.scene)
         sg = jax.lax.stop_gradient
-        return F.run_multi_chord(
-            self._sg_fields, self.counts, sg(o.astype(jnp.float32)),
-            [sg(d.astype(jnp.float32)) for d in dirs], tuple(skips),
-            interpret=self.interpret, dtype=self.compute_dtype)
+        return K.run_multi_chord(self._tabs, sg(o), [sg(d) for d in dirs],
+                                 tuple(skips), interpret=self.interpret,
+                                 dtype=self.compute_dtype)

@@ -1,16 +1,18 @@
-"""Differentiable bridge for the Pallas kernels.
+"""Differentiable bridge for the chord kernel.
 
-Pallas calls have no automatic AD rules, so the differentiable tier wires
-the TPU kernels into JAX autodiff explicitly:
+Pallas calls have no automatic AD rules, so the differentiable tier
+wires the permeation kernel into JAX autodiff explicitly:
 
-- ``chord_loss``: jax.custom_vjp pairing chord_loss_kernel (forward) with
-  chord_bwd_kernel (backward) — gradients to ray origin/direction (source
-  and listener poses) and to per-primitive material density, all at O(R+P)
-  memory (the jnp tier's [R, P] grids OOM at the 1M x 4K headline).
+- ``multi_chord_loss``: jax.custom_vjp whose forward is the fused chord
+  kernel and whose backward is ``jax.vjp`` of the plain chunked chord
+  fold (ops.backend.DenseBackend.multi_permeation_loss): the
+  per-primitive density sum over rays is a plain XLA reduction, and the
+  fold's rematerialised chunks keep the backward at O(R) memory per
+  chunk. Gradients reach ray origins/directions (source and listener
+  poses) and every material leaf of the scene.
 - Closest-hit distances are differentiated by the winner-recompute trick
-  instead (ops.intersect.primitive_t_per_ray): the kernel supplies the
-  argmin selection, an O(R) jnp recompute supplies the derivative. That
-  lives in ops.pallas.backend.PallasBackend(differentiable=True).
+  instead (ops.intersect.primitive_t_per_ray), in
+  ops.pallas.backend.PallasBackend(differentiable=True).
 - Occlusion/visibility booleans carry no tangents by construction
   (straight-through, matching models.differentiable's convention).
 """
@@ -20,104 +22,35 @@ from __future__ import annotations
 from functools import partial
 
 import jax
-import jax.numpy as jnp
-import numpy as np
 
-from audio_raytracer_tpu.ops.pallas import fused as F
+from audio_raytracer_tpu.ops.backend import DenseBackend
 from audio_raytracer_tpu.ops.pallas import kernels as K
 
 
-def _zero_cotangent(v):
-    if hasattr(v, "dtype") and jnp.issubdtype(v.dtype, jnp.floating):
-        return jnp.zeros_like(v)
-    return np.zeros(jnp.shape(v), jax.dtypes.float0)
-
-
 @partial(jax.custom_vjp, nondiff_argnums=(0, 1))
-def chord_loss(counts, interpret, prim_fields, o, d, skip):
-    """Differentiable per-ray permeation loss (sum of chord x density).
-
-    counts/interpret are static; prim_fields is the PallasBackend field
-    dict (gradients flow to its ``*_dens`` entries), o/d are [R, 3].
-    """
-    return K.run_chord_loss(prim_fields, counts, o, d, skip,
-                            interpret=interpret)
-
-
-def _chord_fwd(counts, interpret, prim_fields, o, d, skip):
-    loss = K.run_chord_loss(prim_fields, counts, o, d, skip,
-                            interpret=interpret)
-    return loss, (prim_fields, o, d, skip)
-
-
-def _chord_bwd(counts, interpret, res, g):
-    prim_fields, o, d, skip = res
-    d_o, d_d, dens_grads = K.run_chord_loss_bwd(
-        prim_fields, counts, o.astype(jnp.float32), d.astype(jnp.float32),
-        skip, g.astype(jnp.float32), interpret=interpret)
-    field_cts = {}
-    for k, v in prim_fields.items():
-        if k in dens_grads:
-            field_cts[k] = dens_grads[k].reshape(v.shape).astype(v.dtype)
-        else:
-            field_cts[k] = _zero_cotangent(v)
-    return (field_cts, d_o.astype(o.dtype), d_d.astype(d.dtype),
-            _zero_cotangent(skip))
-
-
-chord_loss.defvjp(_chord_fwd, _chord_bwd)
-
-
-@partial(jax.custom_vjp, nondiff_argnums=(0, 1, 2, 3))
-def multi_chord_loss(counts, skips, interpret, dens_only, prim_fields, o,
-                     dirs):
+def multi_chord_loss(skips, interpret, o, dirs, scene):
     """Differentiable fused permeation loss over S target ray sets.
 
-    counts/skips/interpret/dens_only are static; prim_fields is the
-    PallasBackend field dict (gradients flow to the ``*_dens`` entries);
-    o: [R, 3]; dirs: tuple of S [R, 3] (normalized). Returns [R, S].
-
-    Backward runs the hand-closed adjoint kernel
-    (ops.pallas.fused.multi_chord_bwd) — no per-primitive jax.vjp
-    re-linearization like round 1's chord_bwd_kernel. With
-    ``dens_only=True`` (materials-only training: positions never depend
-    on materials, so the ray cotangents are dead) the cheaper
-    density-only adjoint runs instead and d_o / d_dirs come back zero.
-    """
-    return F.run_multi_chord(prim_fields, counts, o, list(dirs), skips,
+    skips/interpret are static; o: [R, 3]; dirs: tuple of S [R, 3]
+    (normalized); scene: the Scene whose materials receive gradients.
+    Returns [R, S]."""
+    return K.run_multi_chord(K.pack_tables(scene), o, list(dirs), skips,
                              interpret=interpret)
 
 
-def _multi_chord_fwd(counts, skips, interpret, dens_only, prim_fields, o,
-                     dirs):
-    loss = F.run_multi_chord(prim_fields, counts, o, list(dirs), skips,
-                             interpret=interpret)
-    return loss, (prim_fields, o, dirs)
+def _fwd(skips, interpret, o, dirs, scene):
+    return multi_chord_loss(skips, interpret, o, dirs, scene), (o, dirs,
+                                                                scene)
 
 
-def _multi_chord_bwd(counts, skips, interpret, dens_only, res, g):
-    prim_fields, o, dirs = res
-    if dens_only:
-        dens_grads = F.run_multi_chord_dens_bwd(
-            prim_fields, counts, o.astype(jnp.float32),
-            [d.astype(jnp.float32) for d in dirs], skips,
-            g.astype(jnp.float32), interpret=interpret)
-        d_o = jnp.zeros_like(o)
-        d_dirs = tuple(jnp.zeros_like(d) for d in dirs)
-    else:
-        d_o, d_dirs, dens_grads = F.run_multi_chord_bwd(
-            prim_fields, counts, o.astype(jnp.float32),
-            [d.astype(jnp.float32) for d in dirs], skips,
-            g.astype(jnp.float32), interpret=interpret)
-        d_o = d_o.astype(o.dtype)
-        d_dirs = tuple(dd.astype(d.dtype) for dd, d in zip(d_dirs, dirs))
-    field_cts = {}
-    for k, v in prim_fields.items():
-        if k in dens_grads:
-            field_cts[k] = dens_grads[k].reshape(v.shape).astype(v.dtype)
-        else:
-            field_cts[k] = _zero_cotangent(v)
-    return (field_cts, d_o, d_dirs)
+def _bwd(skips, interpret, res, g):
+    def plain(o, dirs, scene):
+        # The kernel's output is f32 even for an f64 scene.
+        return DenseBackend(scene).multi_permeation_loss(
+            o, list(dirs), skips).astype(g.dtype)
+
+    _, vjp = jax.vjp(plain, *res)
+    return vjp(g)
 
 
-multi_chord_loss.defvjp(_multi_chord_fwd, _multi_chord_bwd)
+multi_chord_loss.defvjp(_fwd, _bwd)

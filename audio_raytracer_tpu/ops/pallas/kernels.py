@@ -1,152 +1,42 @@
-"""Pallas TPU kernels for the rays x primitives hot loops.
+"""Pallas kernels for the rays x primitives hot loops, on the Triton route.
 
 Replaces the Burst SIMD tier of the reference
 (Jobs/AudioRaytracerJobBatched.cs:225-449, AudioPermeationJobBatched.cs)
-with VPU kernels shaped for the TPU register file:
+with three kernels shaped for an NVIDIA Hopper card, one result each:
 
-- Rays are packed (R/RAY_COLS, RAY_COLS) — a plain reshape, ray r at
-  [r // RAY_COLS, r % RAY_COLS] — so every HBM and VMEM tile is fully
-  dense and the 1-D -> 2-D relayout is a cheap retiling that XLA fuses
-  into the producing elementwise op (an earlier transposed packing cost
-  ~88 ms per 4 MB strided copy at the 1M-ray scale). Each grid step
-  stages an (8, RAY_COLS) block: RAY_BLOCK = 8 * RAY_COLS rays whose
-  fields live as full (8, RAY_COLS) vregs.
-- Primitives live in SMEM as 1-D scalar arrays and stream through the
-  scalar unit one at a time: each loop iteration broadcasts one
-  primitive's fields against the whole ray block, so every VPU op covers
-  RAY_BLOCK (ray, prim) pairs. The scalar loads/loop bookkeeping run on
-  the scalar core concurrently with the vector ops (decoupled
-  access-execute), and no [R, P] grid ever materializes in HBM — the
-  jnp tier OOMs at the 1M x 4K headline; this tier streams.
+- ``closest_hit``: running (t, scan rank) minimum per ray.
+- ``multi_any_hit``: occlusion of S ray sets that share one origin (the
+  bounce's echo ray and one muffle ray per audio target). Each
+  primitive's fields and origin-only terms are loaded and computed once
+  and reused by all S sets.
+- ``multi_chord``: permeation chord x density sums for S target sets.
+
+Layout:
+
+- A program owns ``BLOCK_R`` rays as 1-D blocks, one thread per ray
+  (``NUM_WARPS`` x 32 = ``BLOCK_R``). Rays are padded to a block
+  multiple by the wrappers; padding lanes are dead / pre-resolved.
+- Primitives stay in global memory as row-packed per-type tables
+  (``pack_tables``: one sphere is one 32-byte row, one AABB 64 bytes,
+  one OBB 128 bytes). The in-kernel ``fori_loop`` reads a primitive's
+  fields as scalars: every thread of a program loads the same address,
+  so a load is an L1 broadcast, and the whole scene (~300 KB at 4K
+  primitives) stays resident in L2. No primitive count cap, no [R, P]
+  grid in device memory.
 - The sequential primitive loop reproduces the reference's scan order
-  (spheres, then AABBs, then OBBs, strict ``<`` update — earlier index
-  wins ties) *exactly*, because it IS a sequential scan.
-- Inactive padding encodes guaranteed misses (negative squared radius
-  for spheres, a +inf ``miss`` add for boxes).
+  (spheres, then AABBs, then OBBs, strict ``<`` update — earlier rank
+  wins ties) exactly, because it IS a sequential scan.
+- Inactive slots encode guaranteed misses (negative squared radius for
+  spheres, a +inf ``miss`` add for boxes).
 
-SMEM capacity bounds the primitive count per kernel call (~512 KB ->
-~16K mixed primitives with every field resident); the PallasBackend
-asserts the bound. Rays are unbounded (blocked over the grid).
-
-Performance notes (measured on v5e at the 1M x 4K x 4-target headline;
-round-3 state ~1123 ms fwd = 934k rays/s, kernels ~=91% of step time):
-
-- Divisions were ~15-20% of the OBB paths (3 per (prim, set)); replaced
-  by the approximate-reciprocal + one-Newton-step _fast_recip (~f32
-  exact, 395 -> 305 ms on an all-OBB occlusion stream).
-- The per-set test math is near its intrinsic op-count minimum; the
-  kernels run register-pressure-limited, NOT ILP-starved: manually
-  unrolling the primitive loop 2x REGRESSED 1.9x (spills), and 16-row
-  f32 blocks regressed ~5% for the same reason. Don't re-try those.
-- Splitting the 5-set fused occlusion into smaller set groups loses:
-  the shared per-prim terms get recomputed (S=3 + S=2 costs ~10% more
-  than S=5 in one stream).
-- Aliveness: fully-dead ray blocks skip the primitive stream (the
-  ``av`` input below + the fused kernels' init bits). With the default
-  long-ray-life workload the alive fraction stays >= 0.74 through the
-  last bounce, so the explicit alive-first compaction
-  (ops/trace.alive_partition) is ~net-neutral there (its two packed
-  permutation gathers cost ~14 ms/bounce — and must be GATHERS: a
-  scatter-based restore cost ~67 ms/bounce, TPU scatter serializes).
-  At the reference's own maxRayLife=125 budget rays die fast and
-  compaction is ~10% end-to-end (1122 -> 1012 ms). Round 4's
-  compact_unordered tier (ops/trace.py) halves the reorder cost by
-  skipping the inverse-permutation restore entirely — every non-debug
-  consumer is a permutation-invariant reduction — landing 955 ms at
-  125-life (1.10M rays/s) and flipping compaction to +6% even at
-  300-life (1133 -> 1066 ms). Do NOT reduce the in-loop muffle counts
-  with segment_sum: the [R]->[B] scatter-add serializes on TPU
-  (~9 ms/bounce measured); use a plain sum (B=1) or one-hot matmul.
-- Chord adjoints, phase-split density accumulation (round 5): a
-  cross-lane ``jnp.sum`` INSIDE the primitive loop stalls Mosaic's
-  software pipeline once per iteration — per-iteration, not
-  per-reduce (cutting 4 reduces/prim to 1 by lane-reassociation
-  bought ~2%; removing the reduce entirely halved the stream: AABB
-  dens stream 137 -> 71 ms). Both adjoint kernels therefore stage
-  each primitive's per-lane density cotangent into a VMEM scratch
-  chunk (fused.DENS_CHUNK = 64 prims x one block, 1 MB) and reduce
-  per chunk in one vectorized op. Measured at the headline (device
-  times net of the ~30 ms dispatch round trip): density-only adjoint
-  299 -> 160 ms — now EQUAL to the chord forward, i.e. the reduction
-  is free; full pose-grad adjoint 579 -> 470 ms. Step-level: fwd_bwd
-  1563 -> 1417 ms (740k rays/s), posegrads 1871 -> 1737 ms.
-- Full pose-grad chord adjoint (fused.run_multi_chord_bwd), measured
-  decomposition of the posegrads step at the headline (pre-phase-split
-  round-4 numbers in parens): 783 ms in-loop occlusion kernels + 236
-  closest-hit + 440 (548) chord adjoint + 133 chord forward
-  (linearization) + ~100 XLA fusions. The remaining adjoint-vs-dens
-  gap (440 vs 160) is the 3+3S ray-cotangent accumulator arrays (15
-  at S=4, ~60 vregs in (8,512) blocks) pushing past the register file
-  — marginal per-set cost measured superlinear (set 2: +76 ms; sets
-  3-4: +125 ms/set) — but SPLITTING loses outright because each split
-  kernel re-pays the ~150 ms base primitive stream: 4 x S=1 kernels
-  ~888 ms, 2 x S=2 ~596 ms, vs the fused adjoint. Don't re-try the
-  split.
-  Also measured: the fwd+bwd step is RAY-LIFE-INDEPENDENT (1568 ms at
-  maxRayLife 300 vs 1569 at 125) — the life-independent chord forward
-  + adjoint + linearization dominate, so the early-death work savings
-  that buy 10%+ on inference do not transfer to training.
-- Per-primitive culling via lax.cond is a NET LOSS: the fused occlusion
-  kernels support a sound convergence-hull cull (every ray set ends at
-  one point, so a scalar AABB(block-origin-box u point) test can skip a
-  primitive's whole vector body — run_multi_any_hit(conv_points=...)),
-  and offline analysis showed 47%/16% joint cull rates at bounces 0/1
-  of the headline scene. But a branch in the primitive loop stops
-  Mosaic from prefetching the next iteration's scalar loads past it,
-  un-hiding them from the VPU stream: +38% on the occlusion kernel
-  even when nothing culls, vs ~13% average work removed. Group-level
-  conds would need Morton-ordered primitive copies and still net out
-  ~zero at demo densities. The API stays (parity-tested) for sparse
-  /clustered scenes; the trace loop does not use it. Permeation chords
-  cannot cull at all: the reference integrates along the UNBOUNDED ray
-  (AudioPermeationJobBatched.cs:287 has no upper t limit), and the
-  infinite sweep reaches ~98% of primitives.
-- Occlusion-only lane compaction in the TRAINING path is MEASURED
-  -NEGATIVE (round 5, don't retry): the occlusion booleans carry no
-  tangents, so loudness_map could legally compact the occlusion
-  KERNEL's inputs under stop_gradient (gather in, inverse-GATHER the
-  booleans out — no transposed scatter ever materializes) while the
-  gradient-carrying trace lanes stay uncompacted. Measured at the 1M
-  x 4K headline: 1557 -> 1761 ms at maxRayLife 300 and 1557 -> 1680
-  at 125 (grads identical). Unlike the inference tier's carry
-  compaction, the training variant must re-pack ~28 columns (offset
-  point + 5 direction sets + limits + moot bits) from scratch EVERY
-  bounce and pays both permutation gathers per bounce — ~40 ms/bounce
-  of data movement against <= 31 ms/bounce of skippable occlusion
-  work even at the fast-death ray budget.
-- Host-side per-bounce primitive compaction (build a compacted prim
-  list with XLA gathers, stream only that) is ANALYZED-NEGATIVE, by
-  structure not implementation: the 47%/16% bounce-0/1 cull rates are
-  PER-RAY-BLOCK hull rates — a single compacted list shared by the
-  whole grid must keep any primitive inside the union of all 256
-  block hulls x 5 sets, which at demo densities is ~the whole scene
-  (measured on the headline scene: 0.2% global cull at bounce 0,
-  0.0% at bounces 1-4).
-  Per-block lists would cull, but the kernel would then need indirect
-  SMEM scalar loads (prim = fields[list[i]]), the same decoupled
-  -prefetch stall class as the measured +38% lax.cond, plus a
-  [256-block x P x 5-set] hull-test build per bounce that costs about
-  what it saves. The work-avoidance lever that DOES pay on this
-  hardware is the ray axis (aliveness blocks + unordered compaction),
-  not the primitive axis.
-
-Reduced precision (``compute_dtype="bfloat16"``): kernels run geometry
-arithmetic in bf16 (16, 512) blocks with f32 islands for every cmp /
-select / sqrt / division (Mosaic on this platform rejects those ops in
-bf16, as well as bf16 scalar negation — see _f32/_neg). Measured on a
-v5e at 1M rays x 4K prims the bf16 tier is NET SLOWER than f32 (~1.9 s
-vs ~1.4 s/step): the cmp/select-heavy occlusion tests spend most ops in
-the f32 islands while 16-row blocks double register pressure. It also
-degrades secondary-ray semantics at world scales >> 1 (the reference's
-1e-4 epsilon hit-point offset, AudioRaytracerJobBatched.cs:57, is below
-bf16 resolution at ~100 m coordinates, so echo/muffle rays can
-self-occlude on the surface they just left — the reference only ever
-stores *collider* data in half, ColliderAABBStruct.cs:10-11, and keeps
-ray math in float). f32 is therefore the recommended and default tier;
-bf16 remains available, parity-tested at documented tolerances
-(tests/test_bf16.py), for small-scene / coarse-audio use — set
-``TraceConfig.epsilon >= world_scale * 2**-8`` so the hit-point offset
-survives bf16 rounding.
+Reduced precision (``dtype=bfloat16``): ray blocks and primitive fields
+enter the per-pair geometry arithmetic in bf16; reciprocals, square
+roots, hit distances, decisions and sums stay f32. It degrades
+secondary-ray semantics at world scales >> 1 (the reference's 1e-4
+hit-point offset, AudioRaytracerJobBatched.cs:57, is below bf16
+resolution at ~100 m coordinates), so f32 is the default; bf16 is
+parity-tested at documented tolerances (tests/test_bf16.py) — set
+``TraceConfig.epsilon >= world_scale * 2**-8`` with it.
 """
 
 from __future__ import annotations
@@ -156,227 +46,205 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
-RAY_COLS = 512
-ROWS = 8
-RAY_BLOCK = ROWS * RAY_COLS  # rays per grid step (f32 tier)
+from audio_raytracer_tpu.ops import quaternion
+from audio_raytracer_tpu.ops.backend import NO_SKIP, vma_of
+
+# Rays per program, one per thread. A power of two (Triton blocks are).
+BLOCK_R = 128
+NUM_WARPS = BLOCK_R // 32
+NUM_STAGES = 2
+# The occlusion kernel checks every this many primitives whether all of
+# its lanes are resolved, and leaves the primitive loop if so.
+EXIT_EVERY = 32
 # Python literals (not jnp constants): the kernel must not capture arrays.
 INT_MAX = 2**31 - 1
 BIG = 3.0e38
-# SMEM budget for primitive fields (conservative; probe showed >= 512 KB).
-SMEM_BYTES = 512 * 1024
+
+# Row layouts of the per-type primitive tables (column name -> index).
+SPHERE_COLS = {k: i for i, k in enumerate(
+    ("cx", "cy", "cz", "r2", "tgt", "dens"))}
+AABB_COLS = {k: i for i, k in enumerate(
+    ("minx", "miny", "minz", "maxx", "maxy", "maxz", "miss", "tgt",
+     "dens"))}
+OBB_COLS = {k: i for i, k in enumerate(
+    ("cx", "cy", "cz", "hx", "hy", "hz",
+     "m00", "m01", "m02", "m10", "m11", "m12", "m20", "m21", "m22",
+     "miss", "tgt", "dens"))}
+_WIDTHS = (8, 16, 32)
 
 
-def _rows(dtype):
-    """Sublane rows per ray block: bf16 vregs pack (16, 128) lanes vs
-    f32's (8, 128), so the bf16 tier stages 16-row blocks — 2x rays per
-    VPU op, the measured 2x VPU throughput on v5e. This is the TPU
-    analog of the reference's half-precision layout
-    (ColliderAABBStruct.cs:10-11, halfQuaternion.cs)."""
-    return 16 if dtype == jnp.bfloat16 else ROWS
+def _table(cols: dict, width: int) -> jax.Array:
+    n = next(iter(cols.values())).shape[0]
+    tab = jnp.stack([jnp.asarray(v, jnp.float32).reshape(n)
+                     for v in cols.values()], axis=1)
+    return jnp.pad(tab, ((0, 0), (0, width - tab.shape[1])))
+
+
+def pack_tables(scene) -> tuple:
+    """(spheres [ns, 8], aabbs [na, 16], obbs [no, 32]) f32 row tables in
+    the *_COLS layouts; None for an empty type. Target ids are stored
+    as floats (exact for |id| < 2**24)."""
+    sp, ab, ob = scene.spheres, scene.aabbs, scene.obbs
+    tabs = [None, None, None]
+    if sp.count:
+        tabs[0] = _table(dict(
+            cx=sp.center[:, 0], cy=sp.center[:, 1], cz=sp.center[:, 2],
+            r2=jnp.where(sp.active, sp.radius * sp.radius, -1e30),
+            tgt=sp.target_id, dens=sp.material.density), _WIDTHS[0])
+    if ab.count:
+        lo = ab.center - ab.half_extents
+        hi = ab.center + ab.half_extents
+        tabs[1] = _table(dict(
+            minx=lo[:, 0], miny=lo[:, 1], minz=lo[:, 2],
+            maxx=hi[:, 0], maxy=hi[:, 1], maxz=hi[:, 2],
+            miss=jnp.where(ab.active, 0.0, jnp.inf),
+            tgt=ab.target_id, dens=ab.material.density), _WIDTHS[1])
+    if ob.count:
+        # World->local rotation baked to matrix rows (quaternion.to_matrix
+        # of the pre-inverted quaternion, mirroring AudioOBBCollider.cs:59's
+        # bake-time inverse): 15 mul-adds per vector.
+        m = quaternion.to_matrix(jnp.asarray(ob.inv_rot, jnp.float32))
+        tabs[2] = _table(dict(
+            cx=ob.center[:, 0], cy=ob.center[:, 1], cz=ob.center[:, 2],
+            hx=ob.half_extents[:, 0], hy=ob.half_extents[:, 1],
+            hz=ob.half_extents[:, 2],
+            **{f"m{i}{j}": m[:, i, j] for i in range(3) for j in range(3)},
+            miss=jnp.where(ob.active, 0.0, jnp.inf),
+            tgt=ob.target_id, dens=ob.material.density), _WIDTHS[2])
+    return tuple(tabs)
+
+
+def table_counts(tabs) -> tuple:
+    return tuple(0 if t is None else t.shape[0] for t in tabs)
+
+
+# ---------------------------------------------------------------------------
+# Per-pair math (one scalar primitive vs a [BLOCK_R] ray block)
+# ---------------------------------------------------------------------------
 
 
 def _f32(x):
-    """Upcast bf16 to f32 (identity on f32): the boundary of an "f32
-    island". Mosaic on this platform supports bf16 *arithmetic* (2x VPU
-    throughput) but not bf16 comparisons, selects, sqrt, or division —
-    the mixed-precision kernels keep the op-heavy geometry arithmetic
-    (slab products, min/max chains, rotations, dot products) in bf16 and
-    route every cmp/select/sqrt/div through f32."""
-    return x.astype(jnp.float32) if x.dtype == jnp.bfloat16 else x
-
-
-class _CastRef:
-    """Ref wrapper casting f32 loads to the kernel compute dtype.
-
-    SMEM primitive fields stay f32 (full-precision geometry, scalar-core
-    casts are free alongside the VPU stream); ray blocks arrive already
-    in the compute dtype and pass through untouched."""
-
-    def __init__(self, ref, cdt):
-        self._ref, self._cdt = ref, cdt
-
-    @property
-    def raw(self):
-        """The underlying uncast (f32) ref, for consumers that must not
-        see the compute-dtype rounding (e.g. cull geometry)."""
-        return self._ref
-
-    def __getitem__(self, idx):
-        v = self._ref[idx]
-        return v.astype(self._cdt) if v.dtype == jnp.float32 else v
-
-
-def _cast_refs(refs: dict, cdt, keep=()) -> dict:
-    """Wrap refs so loads come back in ``cdt``; ``keep`` names stay raw
-    (f32 limit / accumulator-init blocks in the mixed tier). Fields in
-    the cmp/accumulate domain (miss encodings, densities) always stay
-    f32 — only geometry entering the bf16 arithmetic is cast."""
-    if cdt == jnp.float32:
-        return refs
-    return {k: (r if k in keep or k.endswith(("_miss", "_dens", "_br2"))
-                else _CastRef(r, cdt))
-            for k, r in refs.items()}
+    return x.astype(jnp.float32)
 
 
 def _safe_dir(d):
-    # Zero-axis nudge, mirroring ops/intersect._aabb_slab. ones_like
-    # keeps the op in d's compute dtype (f32 or bf16).
-    nudge = jnp.where(d >= 0, jnp.ones_like(d), -jnp.ones_like(d)) * 1e-12
-    return jnp.where(jnp.abs(d) < 1e-12, nudge, d)
+    # Zero-axis nudge, mirroring ops/intersect._aabb_slab.
+    return jnp.where(jnp.abs(d) < 1e-12, jnp.where(d >= 0, 1e-12, -1e-12), d)
 
 
-# ---------------------------------------------------------------------------
-# Per-primitive tests (one scalar primitive vs an (8, RAY_COLS) ray block)
-# ---------------------------------------------------------------------------
+def _recip(d, cdt):
+    """1 / safe_dir(d), divided in f32, returned in the compute dtype."""
+    return (1.0 / _safe_dir(_f32(d))).astype(cdt)
 
 
-def _sphere_t(refs, p, ox, oy, oz, dx, dy, dz, a2, inv2a):
-    """Sphere p hit distance over the ray block; BIG = miss (f32).
+class _Row:
+    """Scalar field loader for primitive ``p`` of one table."""
 
-    Full quadratic with a = dot(d, d), near root preferred
-    (AudioRaytracerJobBatched.cs:323-355). a2 = 2a, inv2a = 1/(2a)
-    (f32). Dot products run in the compute dtype; discriminant, sqrt
-    and root selection in f32 (see _f32).
-    """
-    cx, cy, cz = refs["s_cx"][p], refs["s_cy"][p], refs["s_cz"][p]
-    r2 = refs["s_r2"][p]
-    ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
-    b = _f32(2.0 * (ocx * dx + ocy * dy + ocz * dz))
-    cc = _f32(ocx * ocx + ocy * ocy + ocz * ocz) - _f32(r2)
-    disc = b * b - a2 * 2.0 * cc
-    hit = disc >= 0.0
-    sq = jnp.sqrt(jnp.where(hit, disc, 1.0))
-    t0 = (-b - sq) * inv2a
-    t1 = (-b + sq) * inv2a
-    t = jnp.where(t0 >= 0.0, t0, jnp.where(t1 >= 0.0, t1, BIG))
-    return jnp.where(hit, t, BIG)
+    def __init__(self, ref, cols, p, cdt):
+        self._ref, self._cols, self._p, self._cdt = ref, cols, p, cdt
+
+    def raw(self, name):
+        return self._ref[self._p, self._cols[name]]
+
+    def __getitem__(self, name):
+        return self.raw(name).astype(self._cdt)
+
+    def rotate(self, vx, vy, vz):
+        """World -> OBB-local rotation by the baked matrix rows."""
+        m = self.__getitem__
+        return (m("m00") * vx + m("m01") * vy + m("m02") * vz,
+                m("m10") * vx + m("m11") * vy + m("m12") * vz,
+                m("m20") * vx + m("m21") * vy + m("m22") * vz)
 
 
-def _slab_t(minx, miny, minz, maxx, maxy, maxz, ox, oy, oz, ix, iy, iz):
-    """Slab test (scalar bounds vs ray-block vectors). Returns
-    (t, t_near, t_far, miss) in f32: t per reference select (tNear if
-    > 0 else tFar), miss when tNear > tFar or tFar < 0. Products and
-    min/max chains run in the inputs' compute dtype."""
-    t0x, t1x = (minx - ox) * ix, (maxx - ox) * ix
-    t0y, t1y = (miny - oy) * iy, (maxy - oy) * iy
-    t0z, t1z = (minz - oz) * iz, (maxz - oz) * iz
-    tnx, tfx = jnp.minimum(t0x, t1x), jnp.maximum(t0x, t1x)
-    tny, tfy = jnp.minimum(t0y, t1y), jnp.maximum(t0y, t1y)
-    tnz, tfz = jnp.minimum(t0z, t1z), jnp.maximum(t0z, t1z)
-    t_near = _f32(jnp.maximum(jnp.maximum(tnx, tny), tnz))
-    t_far = _f32(jnp.minimum(jnp.minimum(tfx, tfy), tfz))
+def _slab(mnx, mny, mnz, mxx, mxy, mxz, ix, iy, iz):
+    """(t_near, t_far) f32 from (bound - origin) terms and inverse dirs."""
+    t0x, t1x = mnx * ix, mxx * ix
+    t0y, t1y = mny * iy, mxy * iy
+    t0z, t1z = mnz * iz, mxz * iz
+    t_near = jnp.maximum(jnp.maximum(jnp.minimum(t0x, t1x),
+                                     jnp.minimum(t0y, t1y)),
+                         jnp.minimum(t0z, t1z))
+    t_far = jnp.minimum(jnp.minimum(jnp.maximum(t0x, t1x),
+                                    jnp.maximum(t0y, t1y)),
+                        jnp.maximum(t0z, t1z))
+    return _f32(t_near), _f32(t_far)
+
+
+def _slab_hit_t(t_near, t_far):
+    """Reference select (AudioRaytracerJobBatched.cs:284-308): t_near if
+    > 0 else t_far; BIG on miss."""
     miss = (t_near > t_far) | (t_far < 0.0)
-    t = jnp.where(t_near > 0.0, t_near, t_far)
-    return t, t_near, t_far, miss
+    return jnp.where(miss, BIG, jnp.where(t_near > 0.0, t_near, t_far))
 
 
-def _aabb_t(refs, p, ox, oy, oz, ix, iy, iz):
-    t, _, _, miss = _slab_t(
-        refs["a_minx"][p], refs["a_miny"][p], refs["a_minz"][p],
-        refs["a_maxx"][p], refs["a_maxy"][p], refs["a_maxz"][p],
-        ox, oy, oz, ix, iy, iz)
-    return jnp.where(miss, BIG, t) + refs["a_miss"][p]
+def _aabb_bounds(row, ox, oy, oz):
+    return (row["minx"] - ox, row["miny"] - oy, row["minz"] - oz,
+            row["maxx"] - ox, row["maxy"] - oy, row["maxz"] - oz)
 
 
-def _quat_rotate(qx, qy, qz, qw, vx, vy, vz):
-    """Rotate block vectors by a scalar quaternion:
-    v' = v + w*t + q x t with t = 2 q x v.
-    """
-    tx = 2.0 * (qy * vz - qz * vy)
-    ty = 2.0 * (qz * vx - qx * vz)
-    tz = 2.0 * (qx * vy - qy * vx)
-    rx = vx + qw * tx + (qy * tz - qz * ty)
-    ry = vy + qw * ty + (qz * tx - qx * tz)
-    rz = vz + qw * tz + (qx * ty - qy * tx)
-    return rx, ry, rz
+def _obb_bounds(row, ox, oy, oz):
+    """(bound - local origin) terms of OBB ``row``."""
+    lox, loy, loz = row.rotate(ox - row["cx"], oy - row["cy"],
+                               oz - row["cz"])
+    hx, hy, hz = row["hx"], row["hy"], row["hz"]
+    return (-hx - lox, -hy - loy, -hz - loz, hx - lox, hy - loy, hz - loz)
 
 
-def _mat_rotate(refs, p, vx, vy, vz):
-    """Rotate block vectors into OBB p's local frame by the baked
-    world->local rotation-matrix rows (9 SMEM scalars, from
-    quaternion.to_matrix of the pre-inverted quaternion): 15 fused
-    mul/adds per vector vs ~27 for the quaternion sandwich."""
-    rx = (refs["o_m00"][p] * vx + refs["o_m01"][p] * vy
-          + refs["o_m02"][p] * vz)
-    ry = (refs["o_m10"][p] * vx + refs["o_m11"][p] * vy
-          + refs["o_m12"][p] * vz)
-    rz = (refs["o_m20"][p] * vx + refs["o_m21"][p] * vy
-          + refs["o_m22"][p] * vz)
-    return rx, ry, rz
+def _obb_inv_dir(row, dx, dy, dz, cdt):
+    ldx, ldy, ldz = row.rotate(dx, dy, dz)
+    return _recip(ldx, cdt), _recip(ldy, cdt), _recip(ldz, cdt)
 
 
-def _mat_rotate_t(refs, p, vx, vy, vz):
-    """Transpose (local -> world) rotate: M^T v, for backward passes."""
-    rx = (refs["o_m00"][p] * vx + refs["o_m10"][p] * vy
-          + refs["o_m20"][p] * vz)
-    ry = (refs["o_m01"][p] * vx + refs["o_m11"][p] * vy
-          + refs["o_m21"][p] * vz)
-    rz = (refs["o_m02"][p] * vx + refs["o_m12"][p] * vy
-          + refs["o_m22"][p] * vz)
-    return rx, ry, rz
+# ---------------------------------------------------------------------------
+# Loop drivers
+# ---------------------------------------------------------------------------
 
 
-def _obb_local(refs, p, ox, oy, oz, dx, dy, dz):
-    """Rotate the ray block into OBB p's local frame. Returns local
-    origin and direction."""
-    cx, cy, cz = refs["o_cx"][p], refs["o_cy"][p], refs["o_cz"][p]
-    lox, loy, loz = _mat_rotate(refs, p, ox - cx, oy - cy, oz - cz)
-    ldx, ldy, ldz = _mat_rotate(refs, p, dx, dy, dz)
-    return lox, loy, loz, ldx, ldy, ldz
+def _type_loops(counts, tab_refs, cdt, bodies, carry, n_scale=1):
+    """Run each non-empty type's primitive loop in scan order. ``bodies``
+    are (row, rank, carry) -> carry per type; ``n_scale`` (0 or 1, may be
+    traced) lets a program skip every loop."""
+    base = 0
+    for n, ref, body, cols in zip(counts, tab_refs, bodies,
+                                  (SPHERE_COLS, AABB_COLS, OBB_COLS)):
+        if n:
+            def step(p, c, ref=ref, body=body, cols=cols, base=base):
+                return body(_Row(ref, cols, p, cdt), base + p, c)
+            carry = jax.lax.fori_loop(0, n * n_scale, step, carry)
+        base += n
+    return carry
 
 
-def _match_vma(x, like):
-    """Give x the same varying-manual-axes type as ``like``.
-
-    Under a compiled shard_map trace, values derived from grid-invariant
-    SMEM refs can come back unvaried while the fori_loop carry entered
-    varying over the mesh axes — pvary so carry input/output types
-    match (no data movement; a type cast)."""
-    want = getattr(jax.typeof(like), "vma", None) or frozenset()
-    have = getattr(jax.typeof(x), "vma", None) or frozenset()
-    missing = want - have
-    if missing:
-        return jax.lax.pvary(x, tuple(missing))
-    return x
+def _unresolved(accs):
+    """int32 scalar: 1 while any lane of any set still needs primitives."""
+    return (jnp.min(functools.reduce(jnp.minimum, accs)) < 0.5).astype(
+        jnp.int32)
 
 
-def _neg(x):
-    """Negation avoiding Mosaic's unsupported bf16 neg: route scalars
-    through f32 (identity cost on f32 inputs)."""
-    if x.dtype == jnp.bfloat16:
-        return (-x.astype(jnp.float32)).astype(jnp.bfloat16)
-    return -x
+def _stream_until_resolved(counts, tab_refs, cdt, bodies, accs):
+    """_type_loops in EXIT_EVERY-primitive steps; once every lane of the
+    program is resolved the remaining steps run empty inner loops."""
+    for n, ref, body, cols in zip(counts, tab_refs, bodies,
+                                  (SPHERE_COLS, AABB_COLS, OBB_COLS)):
+        if not n:
+            continue
 
+        def step(p, c, ref=ref, body=body, cols=cols):
+            return body(_Row(ref, cols, p, cdt), p, c)
 
-def _fast_recip(x):
-    """~f32-exact reciprocal: VPU approximate-reciprocal seed + one
-    Newton-Raphson step (r1 = r0 (2 - x r0), ~1e-7 rel error) — ~3 VPU
-    ops vs ~10 for a full divide. The OBB paths issue 3 reciprocals per
-    (primitive, ray set); at 4K prims x 5 sets this is ~15% of the
-    whole forward step when done with real divisions."""
-    r = pl.reciprocal(x, approx=True)
-    return r * (2.0 - x * r)
+        def chunk(k, state, n=n, step=step):
+            live, c = state
+            lo = k * EXIT_EVERY
+            hi = lo + live * (jnp.minimum(lo + EXIT_EVERY, n) - lo)
+            c = jax.lax.fori_loop(lo, hi, step, c)
+            return _unresolved(c), c
 
-
-def _inv_dir(ldx, ldy, ldz, cdt_of):
-    """1 / safe_dir per local axis: f32 island (Mosaic has no bf16
-    division), result back in the compute dtype for the slab products."""
-    ix = _fast_recip(_safe_dir(_f32(ldx)))
-    iy = _fast_recip(_safe_dir(_f32(ldy)))
-    iz = _fast_recip(_safe_dir(_f32(ldz)))
-    dt = cdt_of.dtype
-    return ix.astype(dt), iy.astype(dt), iz.astype(dt)
-
-
-def _obb_t(refs, p, ox, oy, oz, dx, dy, dz):
-    hx, hy, hz = refs["o_hx"][p], refs["o_hy"][p], refs["o_hz"][p]
-    lox, loy, loz, ldx, ldy, ldz = _obb_local(refs, p, ox, oy, oz, dx, dy, dz)
-    ix, iy, iz = _inv_dir(ldx, ldy, ldz, ox)
-    t, _, _, miss = _slab_t(_neg(hx), _neg(hy), _neg(hz), hx, hy, hz,
-                            lox, loy, loz, ix, iy, iz)
-    return jnp.where(miss, BIG, t) + refs["o_miss"][p]
+        _, accs = jax.lax.fori_loop(0, pl.cdiv(n, EXIT_EVERY), chunk,
+                                    (_unresolved(accs), accs))
+    return accs
 
 
 # ---------------------------------------------------------------------------
@@ -384,278 +252,204 @@ def _obb_t(refs, p, ox, oy, oz, dx, dy, dz):
 # ---------------------------------------------------------------------------
 
 
-def _ray_block_inputs(refs):
-    ox, oy, oz = refs["ox"][...], refs["oy"][...], refs["oz"][...]
-    dx, dy, dz = refs["dx"][...], refs["dy"][...], refs["dz"][...]
-    ix, iy, iz = _inv_dir(dx, dy, dz, ox)
-    a = _f32(dx * dx + dy * dy + dz * dz)
-    return ox, oy, oz, dx, dy, dz, ix, iy, iz, a
+def closest_hit_kernel(counts, cdt, *refs):
+    """One ray block vs all primitives -> (t_min f32 (BIG miss), rank).
 
+    The loops ARE the reference scan (sphere -> AABB -> OBB, strict <
+    update: AudioRaytracerJobBatched.cs:225-280). ``av`` is per-lane
+    aliveness: a block with no live lane skips every primitive loop and
+    reports all-miss (the reference's per-ray early exit,
+    AudioRaytracerJobBatched.cs:104, at block granularity; ops.trace
+    compacts rays by aliveness so dead lanes pool into whole blocks)."""
+    ox, oy, oz, dx, dy, dz = (r[...] for r in refs[:6])
+    av = refs[6][...]
+    tab_refs = _with_gaps(counts, refs[7:-2])
+    t_out, i_out = refs[-2:]
 
-def closest_hit_kernel(counts, names, cdt, *refs_list):
-    """Grid step: one ray block vs all primitives -> (t_min, winner rank).
-
-    The fori loops below ARE the reference scan (sphere -> AABB -> OBB,
-    strict < update: AudioRaytracerJobBatched.cs:225-280) vectorized over
-    the ray block. ``cdt`` is the compute dtype (f32, or bf16 for the
-    2x-throughput reduced-precision tier).
-
-    ``av`` is a per-lane aliveness block (1.0 = alive): blocks whose
-    every lane is dead skip the primitive stream and report all-miss —
-    the TPU analog of the reference's per-ray early exit
-    (AudioRaytracerJobBatched.cs:104). ops.trace compacts rays by
-    aliveness between bounces so dead lanes pool into skippable blocks.
-    """
-    ns, na, no = counts
-    refs = _cast_refs(dict(zip(names, refs_list[:len(names)])), cdt,
-                      keep={"av"})
-    t_out, win_out = refs_list[len(names)], refs_list[len(names) + 1]
-
-    av = refs["av"][...]  # f32 aliveness (padding lanes arrive dead)
-    pre = jnp.max(av)
-
-    # Ray-block loads stay OUTSIDE the skip branches (see fused.py: values
-    # loaded inside a pl.when closure lose their varying-manual-axes type
-    # under compiled shard_map traces; the block DMA happens per grid step
-    # regardless).
-    ox, oy, oz, dx, dy, dz, ix, iy, iz, a = _ray_block_inputs(refs)
-    a2 = 2.0 * a
+    ix, iy, iz = _recip(dx, cdt), _recip(dy, cdt), _recip(dz, cdt)
+    a2 = 2.0 * _f32(dx * dx + dy * dy + dz * dz)
     inv2a = 1.0 / a2
-    shape = ox.shape
 
-    @pl.when(pre < 0.5)
-    def _dead():
-        # Whole block dead: all-miss, no primitive stream.
-        t_out[...] = _match_vma(jnp.full(shape, BIG, jnp.float32), av)
-        win_out[...] = _match_vma(jnp.full(shape, INT_MAX, jnp.int32), av)
+    def update(rank, t, carry):
+        bt, bi = carry
+        upd = t < bt
+        return jnp.where(upd, t, bt), jnp.where(upd, rank, bi)
 
-    @pl.when(pre >= 0.5)
-    def _scan():
-        # Per-prim t values come back f32 (cmp/select islands), so the
-        # running minimum and its strict-< update stay exact in every
-        # tier.
-        best_t = _match_vma(jnp.full(shape, BIG, jnp.float32), av)
-        best_i = _match_vma(jnp.full(shape, INT_MAX, jnp.int32), av)
+    def sphere(row, rank, carry):
+        # Full quadratic with a = dot(d, d), near root preferred
+        # (AudioRaytracerJobBatched.cs:323-355).
+        ocx, ocy, ocz = ox - row["cx"], oy - row["cy"], oz - row["cz"]
+        b = 2.0 * _f32(ocx * dx + ocy * dy + ocz * dz)
+        cc = _f32(ocx * ocx + ocy * ocy + ocz * ocz) - row.raw("r2")
+        disc = b * b - a2 * 2.0 * cc
+        hit = disc >= 0.0
+        sq = jnp.sqrt(jnp.where(hit, disc, 1.0))
+        t0 = (-b - sq) * inv2a
+        t1 = (-b + sq) * inv2a
+        t = jnp.where(t0 >= 0.0, t0, jnp.where(t1 >= 0.0, t1, BIG))
+        return update(rank, jnp.where(hit, t, BIG), carry)
 
-        def update(best, t, rank):
-            bt, bi = best
-            upd = t < bt
-            return jnp.where(upd, t, bt), jnp.where(upd, rank, bi)
+    def aabb(row, rank, carry):
+        t = _slab_hit_t(*_slab(*_aabb_bounds(row, ox, oy, oz), ix, iy, iz))
+        return update(rank, t + row.raw("miss"), carry)
 
-        if ns:
-            def s_body(p, best):
-                return update(best,
-                              _sphere_t(refs, p, ox, oy, oz, dx, dy, dz,
-                                        a2, inv2a), p)
-            best = jax.lax.fori_loop(0, ns, s_body, (best_t, best_i))
-            best_t, best_i = best
-        if na:
-            def a_body(p, best):
-                return update(best, _aabb_t(refs, p, ox, oy, oz, ix, iy, iz),
-                              ns + p)
-            best = jax.lax.fori_loop(0, na, a_body, (best_t, best_i))
-            best_t, best_i = best
-        if no:
-            def o_body(p, best):
-                return update(best, _obb_t(refs, p, ox, oy, oz, dx, dy, dz),
-                              ns + na + p)
-            best = jax.lax.fori_loop(0, no, o_body, (best_t, best_i))
-            best_t, best_i = best
+    def obb(row, rank, carry):
+        inv = _obb_inv_dir(row, dx, dy, dz, cdt)
+        t = _slab_hit_t(*_slab(*_obb_bounds(row, ox, oy, oz), *inv))
+        return update(rank, t + row.raw("miss"), carry)
 
-        t_out[...] = best_t
-        win_out[...] = best_i
+    live = (jnp.max(av) > 0.5).astype(jnp.int32)
+    init = (jnp.full(av.shape, BIG, jnp.float32),
+            jnp.full(av.shape, INT_MAX, jnp.int32))
+    t, idx = _type_loops(counts, tab_refs, cdt, (sphere, aabb, obb), init,
+                         n_scale=live)
+    t_out[...] = t
+    i_out[...] = idx
 
 
-def any_hit_kernel(counts, names, *refs_list):
-    """Occlusion: any primitive with t < limit, skipping prims owned by
-    the scalar ``skip`` target id (SMEM)."""
-    ns, na, no = counts
-    refs = dict(zip(names, refs_list[:len(names)]))
-    skip_ref, occ_out = refs_list[len(names)], refs_list[len(names) + 1]
-    skip = skip_ref[0]
+def multi_any_hit_kernel(counts, skips, cdt, *refs):
+    """Per ray block: S occlusion flags (1.0 = ray set s occluded).
 
-    ox, oy, oz, dx, dy, dz, ix, iy, iz, a = _ray_block_inputs(refs)
-    a2 = 2.0 * a
-    inv2a = 1.0 / a2
-    limit = refs["limit"][...]
+    ``skips`` is a static tuple of per-set audio-target ids whose own
+    colliders are skipped (CanRaySeeAudioTarget's AudioTargetId
+    exclusion, AudioRaytracerJobBatched.cs:405-449); NO_SKIP for the
+    echo set. Lanes enter with their ``init`` bit (1.0 = moot: dead ray,
+    target out of range); a program leaves the primitive loop once all
+    of its lanes are resolved.
 
-    acc0 = jnp.zeros(ox.shape, jnp.int32)
-
-    def hit_mask(t, tgt):
-        return ((t < limit) & (tgt != skip)).astype(jnp.int32)
-
-    acc = acc0
-    if ns:
-        def s_body(p, acc):
-            t = _sphere_t(refs, p, ox, oy, oz, dx, dy, dz, a2, inv2a)
-            return acc | hit_mask(t, refs["s_tgt"][p])
-        acc = jax.lax.fori_loop(0, ns, s_body, acc)
-    if na:
-        def a_body(p, acc):
-            t = _aabb_t(refs, p, ox, oy, oz, ix, iy, iz)
-            return acc | hit_mask(t, refs["a_tgt"][p])
-        acc = jax.lax.fori_loop(0, na, a_body, acc)
-    if no:
-        def o_body(p, acc):
-            t = _obb_t(refs, p, ox, oy, oz, dx, dy, dz)
-            return acc | hit_mask(t, refs["o_tgt"][p])
-        acc = jax.lax.fori_loop(0, no, o_body, acc)
-
-    occ_out[...] = acc
-
-
-def _sphere_chord(refs, p, skip, ox, oy, oz, dx, dy, dz, dens):
-    """Weighted chord through sphere p (half-b quadratic; direction
-    assumed normalized — AudioPermeationJobBatched.cs:303-328)."""
-    cx, cy, cz = refs["s_cx"][p], refs["s_cy"][p], refs["s_cz"][p]
-    r2, tgt = refs["s_r2"][p], refs["s_tgt"][p]
-    ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
-    b = ocx * dx + ocy * dy + ocz * dz
-    cc = ocx * ocx + ocy * ocy + ocz * ocz - r2
-    disc = b * b - cc
-    hit = disc >= 0.0
-    sq = jnp.sqrt(jnp.where(hit, disc, 1.0))
-    t_exit = -b + sq
-    enter = jnp.maximum(-b - sq, 0.0)
-    chord = jnp.maximum(0.0, t_exit - enter)
-    valid = hit & (t_exit >= 0.0) & (tgt != skip)
-    return jnp.where(valid, chord, 0.0) * dens
-
-
-def _aabb_chord(refs, p, skip, ox, oy, oz, ix, iy, iz, dens):
-    _, t_near, t_far, _ = _slab_t(
-        refs["a_minx"][p], refs["a_miny"][p], refs["a_minz"][p],
-        refs["a_maxx"][p], refs["a_maxy"][p], refs["a_maxz"][p],
-        ox, oy, oz, ix, iy, iz)
-    chord = jnp.maximum(0.0, t_far - jnp.maximum(t_near, 0.0))
-    valid = ((t_near <= t_far) & (t_far >= 0.0)
-             & (refs["a_tgt"][p] != skip) & (refs["a_miss"][p] == 0.0))
-    return jnp.where(valid, chord, 0.0) * dens
-
-
-def _obb_chord(refs, p, skip, ox, oy, oz, dx, dy, dz, dens):
-    hx, hy, hz = refs["o_hx"][p], refs["o_hy"][p], refs["o_hz"][p]
-    lox, loy, loz, ldx, ldy, ldz = _obb_local(refs, p, ox, oy, oz, dx, dy, dz)
-    ldx, ldy, ldz = _safe_dir(ldx), _safe_dir(ldy), _safe_dir(ldz)
-    _, t_near, t_far, _ = _slab_t(
-        -hx, -hy, -hz, hx, hy, hz, lox, loy, loz,
-        1.0 / ldx, 1.0 / ldy, 1.0 / ldz)
-    chord = jnp.maximum(0.0, t_far - jnp.maximum(t_near, 0.0))
-    valid = ((t_near <= t_far) & (t_far >= 0.0)
-             & (refs["o_tgt"][p] != skip) & (refs["o_miss"][p] == 0.0))
-    return jnp.where(valid, chord, 0.0) * dens
-
-
-def chord_loss_kernel(counts, names, *refs_list):
-    """Permeation: sum over primitives of chord-length x density
-    (AudioPermeationJobBatched.cs:225-328), skipping the scalar target's
-    own colliders."""
-    ns, na, no = counts
-    refs = dict(zip(names, refs_list[:len(names)]))
-    skip_ref, loss_out = refs_list[len(names)], refs_list[len(names) + 1]
-    skip = skip_ref[0]
-
-    ox, oy, oz, dx, dy, dz, ix, iy, iz, _ = _ray_block_inputs(refs)
-    acc = jnp.zeros(ox.shape, jnp.float32)
-
-    if ns:
-        def s_body(p, acc):
-            return acc + _sphere_chord(refs, p, skip, ox, oy, oz, dx, dy, dz,
-                                       refs["s_dens"][p])
-        acc = jax.lax.fori_loop(0, ns, s_body, acc)
-    if na:
-        def a_body(p, acc):
-            return acc + _aabb_chord(refs, p, skip, ox, oy, oz, ix, iy, iz,
-                                     refs["a_dens"][p])
-        acc = jax.lax.fori_loop(0, na, a_body, acc)
-    if no:
-        def o_body(p, acc):
-            return acc + _obb_chord(refs, p, skip, ox, oy, oz, dx, dy, dz,
-                                    refs["o_dens"][p])
-        acc = jax.lax.fori_loop(0, no, o_body, acc)
-
-    loss_out[...] = acc
-
-
-# ---------------------------------------------------------------------------
-# Backward (VJP) kernel for the chord loss
-# ---------------------------------------------------------------------------
-
-
-def chord_bwd_kernel(counts, names, dens_keys, *refs_list):
-    """VJP of chord_loss_kernel: given per-ray cotangents ``gbar``, emit
-    per-ray gradients w.r.t. ray origin/direction and per-primitive
-    gradients w.r.t. density.
-
-    Derivatives come from jax.vjp applied to the same per-primitive math
-    as the forward (exact transposition, no hand-derived case analysis).
-    Per-primitive density cotangents accumulate into grid-invariant SMEM
-    outputs across ray blocks — safe because the TPU grid is sequential.
+    Directions MUST be normalized (they are: safe_normalize in
+    ops.trace) — the sphere test exploits |d| == 1 to resolve the
+    reference's root-select semantics (cs:323-355: t = t0 if t0 >= 0
+    else t1 if t1 >= 0 else miss; occluded iff t < lim) entirely in the
+    sign domain, with no sqrt and no division:
+      h = oc . d, c = |oc|^2 - r^2, roots t0/t1 = -h -/+ sqrt(h^2 - c)
+      t0 >= 0        <=> h <= 0 and c >= 0
+      t0 <  lim      <=> h + lim > 0  or  q(lim) < 0
+      t1 in [0, lim) <=> c < 0 branch: h + lim > 0 and q(lim) > 0
+    where q(lim) = lim^2 + 2 h lim + c is the quadratic at t = lim.
     """
-    ns, na, no = counts
-    n_dens = len(dens_keys)
-    refs = dict(zip(names, refs_list[:len(names)]))
-    skip_ref = refs_list[len(names)]
-    outs = refs_list[len(names) + 1:]
-    do_refs = outs[:6]
-    dens_refs = dict(zip(dens_keys, outs[6:6 + n_dens]))
-    skip = skip_ref[0]
+    S = len(skips)
+    ox, oy, oz = (r[...] for r in refs[:3])
+    sets = []
+    for s in range(S):
+        dx, dy, dz, lim, ini = (r[...] for r in refs[3 + 5 * s:8 + 5 * s])
+        sets.append(dict(dx=dx, dy=dy, dz=dz, lim=lim, ini=ini,
+                         ix=_recip(dx, cdt), iy=_recip(dy, cdt),
+                         iz=_recip(dz, cdt)))
+    tab_refs = _with_gaps(counts, refs[3 + 5 * S:-S])
+    outs = refs[-S:]
 
-    @pl.when(pl.program_id(0) == 0)
-    def _init():
-        for ref in dens_refs.values():
-            def zero(i, _):
-                ref[i] = 0.0
-                return 0
-            jax.lax.fori_loop(0, ref.shape[0], zero, 0)
+    def mark(accs, occ, row):
+        new = []
+        for s, acc in enumerate(accs):
+            o = occ[s]
+            if skips[s] != NO_SKIP:
+                o = o & (row.raw("tgt") != float(skips[s]))
+            new.append(jnp.where(o, 1.0, acc))
+        return tuple(new)
 
-    ox, oy, oz = refs["ox"][...], refs["oy"][...], refs["oz"][...]
-    dx, dy, dz = refs["dx"][...], refs["dy"][...], refs["dz"][...]
-    g = refs["gbar"][...]
+    def sphere(row, rank, accs):
+        ocx, ocy, ocz = ox - row["cx"], oy - row["cy"], oz - row["cz"]
+        c = _f32(ocx * ocx + ocy * ocy + ocz * ocz) - row.raw("r2")
+        occ = []
+        for st in sets:
+            h = _f32(ocx * st["dx"] + ocy * st["dy"] + ocz * st["dz"])
+            lim = st["lim"]
+            hl = h + lim
+            q = lim * (hl + h) + c  # lim^2 + 2 h lim + c
+            entering = (c >= 0.0) & (h <= 0.0) & ((hl > 0.0) | (q < 0.0))
+            inside = (c < 0.0) & (hl > 0.0) & (q > 0.0)
+            occ.append((h * h >= c) & (entering | inside))
+        return mark(accs, occ, row)
 
-    acc = tuple(jnp.zeros(ox.shape, jnp.float32) for _ in range(6))
+    def aabb(row, rank, accs):
+        b = _aabb_bounds(row, ox, oy, oz)
+        miss = row.raw("miss")
+        occ = [_slab_hit_t(*_slab(*b, st["ix"], st["iy"], st["iz"])) + miss
+               < st["lim"] for st in sets]
+        return mark(accs, occ, row)
 
-    def grads(f, dens):
-        """vjp of the per-prim weighted chord w.r.t. rays + scalar dens."""
-        w, vjp = jax.vjp(f, ox, oy, oz, dx, dy, dz, dens)
-        *g_rays, g_dens = vjp(g)
-        return g_rays, g_dens
+    def obb(row, rank, accs):
+        b = _obb_bounds(row, ox, oy, oz)
+        miss = row.raw("miss")
+        occ = []
+        for st in sets:
+            inv = _obb_inv_dir(row, st["dx"], st["dy"], st["dz"], cdt)
+            occ.append(_slab_hit_t(*_slab(*b, *inv)) + miss < st["lim"])
+        return mark(accs, occ, row)
 
-    if ns:
-        def s_body(p, acc):
-            def f(ox, oy, oz, dx, dy, dz, dens):
-                return _sphere_chord(refs, p, skip, ox, oy, oz, dx, dy, dz,
-                                     dens)
-            g_rays, g_dens = grads(f, refs["s_dens"][p])
-            dens_refs["s_dens"][p] += g_dens
-            return tuple(a + gg for a, gg in zip(acc, g_rays))
-        acc = jax.lax.fori_loop(0, ns, s_body, acc)
+    accs = _stream_until_resolved(counts, tab_refs, cdt, (sphere, aabb, obb),
+                                  tuple(st["ini"] for st in sets))
+    for out, acc in zip(outs, accs):
+        out[...] = acc
 
-    if na:
-        def a_body(p, acc):
-            def f(ox, oy, oz, dx, dy, dz, dens):
-                ix = 1.0 / _safe_dir(dx)
-                iy = 1.0 / _safe_dir(dy)
-                iz = 1.0 / _safe_dir(dz)
-                return _aabb_chord(refs, p, skip, ox, oy, oz, ix, iy, iz,
-                                   dens)
-            g_rays, g_dens = grads(f, refs["a_dens"][p])
-            dens_refs["a_dens"][p] += g_dens
-            return tuple(a + gg for a, gg in zip(acc, g_rays))
-        acc = jax.lax.fori_loop(0, na, a_body, acc)
 
-    if no:
-        def o_body(p, acc):
-            def f(ox, oy, oz, dx, dy, dz, dens):
-                return _obb_chord(refs, p, skip, ox, oy, oz, dx, dy, dz,
-                                  dens)
-            g_rays, g_dens = grads(f, refs["o_dens"][p])
-            dens_refs["o_dens"][p] += g_dens
-            return tuple(a + gg for a, gg in zip(acc, g_rays))
-        acc = jax.lax.fori_loop(0, no, o_body, acc)
+def multi_chord_kernel(counts, skips, cdt, *refs):
+    """Per ray block: S permeation chord x density sums in one primitive
+    stream (AudioPermeationJobBatched.cs:225-328 for all targets at
+    once). Directions are normalized (half-b sphere quadratic); the sums
+    accumulate in f32."""
+    S = len(skips)
+    ox, oy, oz = (r[...] for r in refs[:3])
+    sets = []
+    for s in range(S):
+        dx, dy, dz = (r[...] for r in refs[3 + 3 * s:6 + 3 * s])
+        sets.append(dict(dx=dx, dy=dy, dz=dz, ix=_recip(dx, cdt),
+                         iy=_recip(dy, cdt), iz=_recip(dz, cdt)))
+    tab_refs = _with_gaps(counts, refs[3 + 3 * S:-S])
+    outs = refs[-S:]
 
-    for ref, a in zip(do_refs, acc):
-        ref[...] = a
+    def add(accs, chords, row):
+        tgt, dens = row.raw("tgt"), row.raw("dens")
+        return tuple(acc + jnp.where(ok & (tgt != float(skips[s])), ch, 0.0)
+                     * dens for s, (acc, (ok, ch)) in
+                     enumerate(zip(accs, chords)))
+
+    def box_chord(t_near, t_far, live):
+        ok = (t_near <= t_far) & (t_far >= 0.0) & live
+        return ok, jnp.maximum(0.0, t_far - jnp.maximum(t_near, 0.0))
+
+    def sphere(row, rank, accs):
+        ocx, ocy, ocz = ox - row["cx"], oy - row["cy"], oz - row["cz"]
+        cc = _f32(ocx * ocx + ocy * ocy + ocz * ocz) - row.raw("r2")
+        chords = []
+        for st in sets:
+            b = _f32(ocx * st["dx"] + ocy * st["dy"] + ocz * st["dz"])
+            disc = b * b - cc
+            hit = disc >= 0.0
+            sq = jnp.sqrt(jnp.where(hit, disc, 1.0))
+            t_exit = -b + sq
+            chord = jnp.maximum(0.0, t_exit - jnp.maximum(-b - sq, 0.0))
+            chords.append((hit & (t_exit >= 0.0), chord))
+        return add(accs, chords, row)
+
+    def aabb(row, rank, accs):
+        b = _aabb_bounds(row, ox, oy, oz)
+        live = row.raw("miss") == 0.0
+        return add(accs, [box_chord(*_slab(*b, st["ix"], st["iy"],
+                                           st["iz"]), live)
+                          for st in sets], row)
+
+    def obb(row, rank, accs):
+        b = _obb_bounds(row, ox, oy, oz)
+        live = row.raw("miss") == 0.0
+        chords = []
+        for st in sets:
+            inv = _obb_inv_dir(row, st["dx"], st["dy"], st["dz"], cdt)
+            chords.append(box_chord(*_slab(*b, *inv), live))
+        return add(accs, chords, row)
+
+    zero = jnp.zeros(ox.shape, jnp.float32)
+    accs = _type_loops(counts, tab_refs, cdt, (sphere, aabb, obb),
+                       (zero,) * S)
+    for out, acc in zip(outs, accs):
+        out[...] = acc
+
+
+def _with_gaps(counts, present):
+    """Table refs in [sphere, aabb, obb] slots (None for empty types)."""
+    it = iter(present)
+    return [next(it) if n else None for n in counts]
 
 
 # ---------------------------------------------------------------------------
@@ -663,194 +457,97 @@ def chord_bwd_kernel(counts, names, dens_keys, *refs_list):
 # ---------------------------------------------------------------------------
 
 
-def _prim_spec():
-    # Whole 1-D scalar array, grid-invariant, resident in SMEM.
-    return pl.BlockSpec(memory_space=pltpu.SMEM)
+def _padded_rays(R: int) -> int:
+    return -(-R // BLOCK_R) * BLOCK_R
 
 
-def _ray_spec(rows=ROWS):
-    # Ray arrays are (rp/RAY_COLS, RAY_COLS); each grid step stages the
-    # band (rows, RAY_COLS) at rows [rows*i, rows*(i+1)).
-    return pl.BlockSpec((rows, RAY_COLS), lambda i: (i, 0),
-                        memory_space=pltpu.VMEM)
-
-
-def _round_block(R, rows=ROWS):
-    block = rows * RAY_COLS
-    return -(-R // block) * block
-
-
-def _pad_rays(x, rp, dtype=None):
-    """[R] -> (rp/RAY_COLS, RAY_COLS) row-major (a free reshape)."""
-    r = x.shape[0]
+def _pad(x, rp, fill=0.0, dtype=None):
+    """[R] -> [rp] with ``fill`` in the padding lanes."""
     if dtype is not None:
         x = x.astype(dtype)
-    if r != rp:
-        x = jnp.concatenate([x, jnp.zeros((rp - r,), x.dtype)])
-    return x.reshape(rp // RAY_COLS, RAY_COLS)
+    if x.shape[0] != rp:
+        x = jnp.concatenate([x, jnp.full((rp - x.shape[0],), fill, x.dtype)])
+    return x
 
 
-def _unpack_rays(x, R):
-    """(rp/RAY_COLS, RAY_COLS) -> [R]."""
-    return x.reshape(-1)[:R]
-
-
-def _grid(rp, rows=ROWS):
-    return (rp // (rows * RAY_COLS),)
-
-
-def _ray_out(rp, dtype, vma=frozenset()):
-    return jax.ShapeDtypeStruct((rp // RAY_COLS, RAY_COLS), dtype, vma=vma)
-
-
-def _out_vma(*operands):
-    """Union of the operands' varying-manifest-axes, so pallas_call
-    outputs type-check under shard_map's check_vma (outputs vary over
-    every mesh axis any input varies over)."""
-    vma = frozenset()
-    for group in operands:
-        for a in (group if isinstance(group, (list, tuple)) else [group]):
-            v = getattr(jax.typeof(a), "vma", None)
-            if v:
-                vma |= v
-    return vma
-
-
-def run_closest_hit(prim_fields: dict, counts, o, d, interpret=False,
-                    dtype=jnp.float32, alive=None):
-    """o, d: [R, 3] -> (t [R] f32 (+inf miss), rank [R] int32).
-
-    ``prim_fields``: dict of 1-D scalar arrays (see PallasBackend);
-    ``counts``: true (ns, na, no). ``dtype``: compute dtype (bf16 runs
-    ~2x faster; t carries ~8-bit mantissa and near-tie winners may
-    differ from the f32 scan). ``alive``: optional [R] bool — blocks
-    whose lanes are ALL dead skip the primitive stream and report miss
-    (mixed blocks still compute every lane; callers mask dead lanes
-    themselves). Pair with ops.trace's aliveness compaction so dead
-    lanes pool into fully-skippable blocks.
-    """
-    R = o.shape[0]
-    rows = _rows(dtype)
-    rp = _round_block(R, rows)
-    names = list(prim_fields.keys())
-    geom = [k for k in names
-            if not k.endswith("_tgt") and not k.endswith("_dens")]
-    fields = {k: prim_fields[k] for k in geom}
-    av = (jnp.ones((R,), jnp.float32) if alive is None
-          else alive.astype(jnp.float32))
-    ray_names = ["ox", "oy", "oz", "dx", "dy", "dz", "av"]
-    rays = [_pad_rays(o[:, 0], rp, dtype), _pad_rays(o[:, 1], rp, dtype),
-            _pad_rays(o[:, 2], rp, dtype), _pad_rays(d[:, 0], rp, dtype),
-            _pad_rays(d[:, 1], rp, dtype), _pad_rays(d[:, 2], rp, dtype),
-            _pad_rays(av, rp)]  # zero-padded: padding lanes arrive dead
-    # Padded rays have d = 0 -> nudged dirs; results sliced off anyway.
-
-    all_names = ray_names + list(fields.keys())
-    kernel = functools.partial(closest_hit_kernel, counts, all_names, dtype)
-    vma = _out_vma(rays, list(fields.values()))
-    t, win = pl.pallas_call(
+def _call(kernel, rays, tabs, out_dtypes, interpret):
+    """pallas_call over ray blocks; tables are passed whole."""
+    rp = rays[0].shape[0]
+    tabs = [t for t in tabs if t is not None]
+    # Outputs vary over every mesh axis any input varies over, so the
+    # call type-checks under shard_map.
+    vma = vma_of(rays, tabs)
+    ray_spec = pl.BlockSpec((BLOCK_R,), lambda i: (i,))
+    return pl.pallas_call(
         kernel,
-        grid=_grid(rp, rows),
-        in_specs=[_ray_spec(rows)] * 7 + [_prim_spec()] * len(fields),
-        out_specs=[_ray_spec(rows), _ray_spec(rows)],
-        out_shape=[_ray_out(rp, jnp.float32, vma),
-                   _ray_out(rp, jnp.int32, vma)],
+        grid=(rp // BLOCK_R,),
+        in_specs=[ray_spec] * len(rays) + [pl.no_block_spec] * len(tabs),
+        out_specs=[ray_spec] * len(out_dtypes),
+        out_shape=[jax.ShapeDtypeStruct((rp,), dt, vma=vma)
+                   for dt in out_dtypes],
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=NUM_WARPS,
+                                                num_stages=NUM_STAGES),
         interpret=interpret,
-    )(*rays, *fields.values())
-    t = _unpack_rays(t, R)
-    t = jnp.where(t >= BIG, jnp.inf, t)
-    return t, _unpack_rays(win, R)
+    )(*rays, *tabs)
 
 
-def run_any_hit(prim_fields: dict, counts, o, d, limit, skip_id,
-                interpret=False):
-    """Occlusion test -> bool [R]. ``skip_id``: scalar int32 (-1 = none)."""
+def _xyz(v, rp, dtype):
+    return [_pad(v[:, k], rp, dtype=dtype) for k in range(3)]
+
+
+def run_closest_hit(tabs, o, d, alive=None, interpret=False,
+                    dtype=jnp.float32):
+    """o, d: [R, 3] -> (t [R] f32 (+inf miss), rank [R] int32; INT_MAX
+    on miss). ``alive``: optional [R] bool — blocks whose lanes are ALL
+    dead skip the primitive loops and report miss (callers mask dead
+    lanes of mixed blocks themselves)."""
     R = o.shape[0]
-    rp = _round_block(R)
-    names = [k for k in prim_fields if not k.endswith("_dens")]
-    fields = {k: prim_fields[k] for k in names}
-    ray_names = ["ox", "oy", "oz", "dx", "dy", "dz", "limit"]
-    rays = [_pad_rays(o[:, 0], rp), _pad_rays(o[:, 1], rp),
-            _pad_rays(o[:, 2], rp), _pad_rays(d[:, 0], rp),
-            _pad_rays(d[:, 1], rp), _pad_rays(d[:, 2], rp),
-            _pad_rays(jnp.broadcast_to(limit, (R,)), rp)]
-    skip = jnp.asarray(skip_id, jnp.int32).reshape(1)
-
-    all_names = ray_names + list(fields.keys())
-    kernel = functools.partial(any_hit_kernel, counts, all_names)
-    vma = _out_vma(rays, list(fields.values()), skip)
-    occ = pl.pallas_call(
-        kernel,
-        grid=_grid(rp),
-        in_specs=([_ray_spec()] * 7 + [_prim_spec()] * len(fields)
-                  + [_prim_spec()]),
-        out_specs=_ray_spec(),
-        out_shape=_ray_out(rp, jnp.int32, vma),
-        interpret=interpret,
-    )(*rays, *fields.values(), skip)
-    return _unpack_rays(occ, R) > 0
+    rp = _padded_rays(R)
+    av = jnp.ones((R,), jnp.float32) if alive is None else alive.astype(
+        jnp.float32)
+    rays = _xyz(o, rp, dtype) + _xyz(d, rp, dtype) + [_pad(av, rp)]
+    kernel = functools.partial(closest_hit_kernel, table_counts(tabs),
+                               dtype)
+    t, idx = _call(kernel, rays, tabs, (jnp.float32, jnp.int32), interpret)
+    t = t[:R]
+    return jnp.where(t >= BIG, jnp.inf, t), idx[:R]
 
 
-def run_chord_loss(prim_fields: dict, counts, o, d, skip_id,
-                   interpret=False):
-    """Permeation chord-loss sums -> f32 [R]."""
+def run_multi_any_hit(tabs, o, dirs, limits, skips, init_occ,
+                      interpret=False, dtype=jnp.float32):
+    """Occlusion over S ray sets sharing one origin.
+
+    o: [R, 3]; dirs: list of S [R, 3] (MUST be normalized — the sphere
+    test assumes |d| == 1); limits: [R, S]; skips: static tuple of S
+    ints (NO_SKIP = no exclusion); init_occ: [R, S] bool lanes whose
+    test is moot (pre-marked occluded). Returns occ [R, S] bool
+    (init_occ lanes come back True)."""
     R = o.shape[0]
-    rp = _round_block(R)
-    names = list(prim_fields.keys())
-    ray_names = ["ox", "oy", "oz", "dx", "dy", "dz"]
-    rays = [_pad_rays(o[:, 0], rp), _pad_rays(o[:, 1], rp),
-            _pad_rays(o[:, 2], rp), _pad_rays(d[:, 0], rp),
-            _pad_rays(d[:, 1], rp), _pad_rays(d[:, 2], rp)]
-    skip = jnp.asarray(skip_id, jnp.int32).reshape(1)
-
-    all_names = ray_names + names
-    kernel = functools.partial(chord_loss_kernel, counts, all_names)
-    vma = _out_vma(rays, list(prim_fields.values()), skip)
-    loss = pl.pallas_call(
-        kernel,
-        grid=_grid(rp),
-        in_specs=([_ray_spec()] * 6 + [_prim_spec()] * len(names)
-                  + [_prim_spec()]),
-        out_specs=_ray_spec(),
-        out_shape=_ray_out(rp, jnp.float32, vma),
-        interpret=interpret,
-    )(*rays, *prim_fields.values(), skip)
-    return _unpack_rays(loss, R)
+    rp = _padded_rays(R)
+    rays = _xyz(o, rp, dtype)
+    for s, d in enumerate(dirs):
+        # Padding lanes enter resolved so they never hold a program in
+        # its primitive loop.
+        rays += _xyz(d, rp, dtype) + [
+            _pad(limits[:, s].astype(jnp.float32), rp),
+            _pad(init_occ[:, s].astype(jnp.float32), rp, fill=1.0)]
+    kernel = functools.partial(multi_any_hit_kernel, table_counts(tabs),
+                               tuple(skips), dtype)
+    outs = _call(kernel, rays, tabs, (jnp.float32,) * len(dirs), interpret)
+    return jnp.stack([x[:R] > 0.5 for x in outs], axis=-1)
 
 
-def run_chord_loss_bwd(prim_fields: dict, counts, o, d, skip_id, gbar,
-                       interpret=False):
-    """VJP wrapper: (d_o [R,3], d_d [R,3], {dens_key: 1-D prim grads}).
-
-    ``gbar``: [R] cotangent of the per-ray loss.
-    """
+def run_multi_chord(tabs, o, dirs, skips, interpret=False,
+                    dtype=jnp.float32):
+    """[R, S] f32 permeation chord-loss sums for S target ray sets
+    (dirs normalized; ``dtype`` is the chord-test compute dtype)."""
     R = o.shape[0]
-    rp = _round_block(R)
-    names = list(prim_fields.keys())
-    dens_keys = [k for k in names if k.endswith("_dens")]
-    ray_names = ["ox", "oy", "oz", "dx", "dy", "dz", "gbar"]
-    rays = [_pad_rays(o[:, 0], rp), _pad_rays(o[:, 1], rp),
-            _pad_rays(o[:, 2], rp), _pad_rays(d[:, 0], rp),
-            _pad_rays(d[:, 1], rp), _pad_rays(d[:, 2], rp),
-            _pad_rays(gbar, rp)]  # zero-padded gbar: padding contributes 0
-    skip = jnp.asarray(skip_id, jnp.int32).reshape(1)
-
-    all_names = ray_names + names
-    kernel = functools.partial(chord_bwd_kernel, counts, all_names, dens_keys)
-    vma = _out_vma(rays, list(prim_fields.values()), skip)
-    dens_out = [jax.ShapeDtypeStruct(prim_fields[k].shape, jnp.float32,
-                                     vma=vma)
-                for k in dens_keys]
-    outs = pl.pallas_call(
-        kernel,
-        grid=_grid(rp),
-        in_specs=([_ray_spec()] * 7 + [_prim_spec()] * len(names)
-                  + [_prim_spec()]),
-        out_specs=[_ray_spec()] * 6 + [_prim_spec()] * len(dens_keys),
-        out_shape=[_ray_out(rp, jnp.float32, vma)] * 6 + dens_out,
-        interpret=interpret,
-    )(*rays, *prim_fields.values(), skip)
-    d_o = jnp.stack([_unpack_rays(outs[i], R) for i in range(3)], axis=-1)
-    d_d = jnp.stack([_unpack_rays(outs[i], R) for i in range(3, 6)], axis=-1)
-    dens_grads = dict(zip(dens_keys, outs[6:]))
-    return d_o, d_d, dens_grads
+    rp = _padded_rays(R)
+    rays = _xyz(o, rp, dtype)
+    for d in dirs:
+        rays += _xyz(d, rp, dtype)
+    kernel = functools.partial(multi_chord_kernel, table_counts(tabs),
+                               tuple(skips), dtype)
+    outs = _call(kernel, rays, tabs, (jnp.float32,) * len(dirs), interpret)
+    return jnp.stack([x[:R] for x in outs], axis=-1)

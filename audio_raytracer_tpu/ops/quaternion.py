@@ -29,10 +29,10 @@ def rotate(q: Array, v: Array) -> Array:
 def to_matrix(q: Array) -> Array:
     """Rotation matrix M [..., 3, 3] with M @ v == rotate(q, v).
 
-    Used to pre-bake the per-OBB inverse rotation into 9 SMEM scalars so
-    the kernels rotate with 15 fused mul/adds per vector instead of the
-    ~27-op quaternion sandwich (the TPU analog of the reference's
-    bake-time inverse-quaternion trick, AudioOBBCollider.cs:59).
+    Used to pre-bake the per-OBB inverse rotation into 9 table entries
+    so the kernels rotate with 15 mul-adds per vector instead of the
+    ~27-op quaternion sandwich (the analog of the reference's bake-time
+    inverse-quaternion trick, AudioOBBCollider.cs:59).
     """
     x, y, z, w = (q[..., i] for i in range(4))
     xx, yy, zz = x * x, y * y, z * z

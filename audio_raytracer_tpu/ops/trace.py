@@ -57,17 +57,14 @@ def alive_partition(alive: Array,
     ``with_inverse=False`` skips the pos cumsums (returns None) for the
     unordered compaction tier that never restores.
 
-    ``order`` comes from XLA's stable boolean sort (~1 ms at 1M rays on
-    a v5e); ``pos`` from two cumsums. BOTH directions are applied as
-    gathers — never as a scatter: TPU scatter lowers to a serialized
-    update loop (~67 ms per bounce for the packed output rows when this
-    used .at[].set; the gather form is ~100x cheaper).
+    ``order`` comes from XLA's stable boolean sort; ``pos`` from two
+    cumsums. Both directions are applied as gathers, never as a scatter.
 
     This is the between-bounce ray compaction that makes the kernel
     tier's fully-dead-block skipping actually fire (the reference's
     per-ray early exit, AudioRaytracerJobBatched.cs:104, has no per-lane
-    analog on the VPU — but pooling dead lanes into whole skippable
-    blocks recovers the work saving at block granularity).
+    analog in a block-parallel kernel — but pooling dead lanes into whole
+    skippable blocks recovers the work saving at block granularity).
     """
     order = jnp.argsort(~alive, stable=True).astype(jnp.int32)
     if not with_inverse:
@@ -85,10 +82,8 @@ def _pack_rows(*cols) -> Array:
     """Pack per-ray columns ([R] or [R, k], f32/int32/bool) into one
     [R, K] f32 row matrix. Ints are bitcast (exact); bools go via f32.
 
-    Permuting ray state must move WHOLE ROWS: K separate [R] gathers at
-    1M rays cost ~7 ms each (4-byte random access is HBM-latency bound)
-    while one [R, K] row gather is coalesced and ~50x cheaper. Same for
-    the scatter-back of per-bounce outputs.
+    Permuting ray state moves WHOLE ROWS: one coalesced [R, K] row
+    gather instead of K separate 4-byte random-access [R] gathers.
     """
     parts = []
     for c in cols:
@@ -140,14 +135,6 @@ def _secondary_occlusion(backend, scene: Scene, cfg: TraceConfig,
         skips.append(t)  # skip the target's own colliders (cs:405-449)
         moot.append(~live_hit | (dist >= cfg.max_muffle_hit_distance))
     limits = jnp.stack(limits, axis=-1)  # [R, 1 + T]
-    # NOTE: the kernel tier supports a convergence-hull culling hint
-    # (multi_occluded(conv_points=[origin, *targets])) that provably
-    # skips primitives outside each set's segment hull — but it is NOT
-    # passed here: the per-primitive lax.cond it needs breaks Mosaic's
-    # decoupled scalar-prefetch pipelining (+38% on the occlusion
-    # stream, measured on v5e), which outweighs the ~13% average cull
-    # rate at demo-like scene densities. See ops/pallas/kernels.py
-    # "Performance notes".
     occ = backend.multi_occluded(offset_point, dirs, limits, tuple(skips),
                                  jnp.stack(moot, axis=-1))
     echo_visible = ~occ[..., 0]
@@ -195,15 +182,11 @@ def trace(origin: Array, directions: Array, scene: Scene, cfg: TraceConfig,
     batch_ids = accum_batch_ids(R, cfg.num_accum_batches)
     # Block-skip aliveness is free on engines that support it: the kernel
     # skips fully-dead ray blocks outright (deaths cluster along the
-    # Fibonacci latitude bands, so whole contiguous blocks do die).
+    # Fibonacci latitude bands, so whole contiguous blocks do die). The
+    # explicit alive-first reorder (cfg.compact_rays) additionally pools
+    # scattered dead lanes into skippable blocks, at the cost of moving
+    # the ray state every bounce.
     block_skip = getattr(backend, "supports_block_skip", False)
-    # The explicit alive-first reorder (cfg.compact_rays) additionally
-    # pools scattered dead lanes into skippable blocks — but its data
-    # movement (~15 gathers/scatters of [R] per bounce, ~100 ms at 1M
-    # rays on a v5e) only pays off when rays die fast (short
-    # max_ray_life / high absorption). Measured at the 1M x 4K headline
-    # with max_ray_life=300 the alive fraction stays >= 0.74 through the
-    # last bounce and the reorder is a net loss, hence default-off.
     compact = cfg.compact_rays and block_skip
     # Unordered tier: skip the inverse-permutation restore entirely —
     # sound because every consumer of the non-debug outputs is a
@@ -283,16 +266,15 @@ def trace(origin: Array, directions: Array, scene: Scene, cfg: TraceConfig,
             # No restore: lanes stay compacted into the next bounce; the
             # muffle counts reduce to [B, T] right here on the compacted
             # batch ids, and the echo column feeds only sums/histograms.
-            # NEVER segment_sum here: a [R]->[B] scatter-add inside the
-            # loop serializes on TPU (~9 ms/bounce measured); a plain
-            # sum (B == 1) or a one-hot matmul (small B, MXU-shaped,
-            # exact in f32 below 2^24 counts) is bandwidth-bound.
+            # A plain sum (B == 1) or a one-hot matmul (small B) instead
+            # of a [R] -> [B] scatter-add inside the loop.
             m = muffle_inc.astype(jnp.float32)
             if B == 1:
                 seg = jnp.sum(m, axis=0, keepdims=True)
             else:
                 one_hot = (bids[:, None] == jnp.arange(B)[None, :]
                            ).astype(jnp.float32)
+                # 0/1 operands: exact even when the matmul runs in TF32.
                 seg = jnp.einsum("rb,rt->bt", one_hot, m)
             muffle_acc = muffle_acc + seg.astype(jnp.int32)
             carry = ((o, d, life, alive_next, bids, muffle_acc)
@@ -303,8 +285,7 @@ def trace(origin: Array, directions: Array, scene: Scene, cfg: TraceConfig,
         outputs = (t, echo_val, muffle_inc, live_hit, p)
         if do_compact:
             # Restore original ray order with ONE packed inverse-perm
-            # GATHER over outputs + next-bounce carry (never a scatter —
-            # TPU scatter serializes; see alive_partition).
+            # GATHER over outputs + next-bounce carry (see alive_partition).
             out_rows = _pack_rows(t, echo_val, live_hit, p, muffle_inc,
                                   o, d, life, alive_next)[pos]
             T_ = muffle_inc.shape[-1]
@@ -332,34 +313,20 @@ def trace(origin: Array, directions: Array, scene: Scene, cfg: TraceConfig,
             jax.lax.pcast(x, pvary_axes, to="varying")
             for x in (o0, life0, alive0))
 
-    # Unroll shallow bounce loops ON DEVICE only: at the default depths
-    # (H <= 8) the unrolled program lets XLA schedule across bounce
-    # boundaries (measured ~1% faster with a visibly tighter spread at
-    # the 1M x 4K headline, fwd AND fwd+bwd); deeper configs (the
-    # reference allows 26 hits/ray) keep the rolled scan to bound
-    # compile size. On the CPU backend the scan stays ROLLED: the win
-    # is TPU-measured only, and H-times-larger programs (with
-    # interpret-mode pallas calls inlined per bounce) flakily segfault
-    # XLA's CPU compiler in long-lived test processes (observed thrice
-    # in full-suite runs, never with rolled scans).
-    unroll = H if (H <= 8 and jax.default_backend() != "cpu") else 1
-
     def scan_bounces(carry0):
         """Scan all H bounces; with compaction on, bounce 0 runs OUTSIDE
         the scan with the reorder elided — every ray starts alive, so
         its alive-first partition is the identity permutation and the
-        argsort + packed row gathers there are pure cost (~8 ms/step at
-        1M rays on a v5e; exactness pinned by the compaction-invariance
-        tests, which compare against the uncompacted engine)."""
+        argsort + packed row gathers there are pure cost (exactness
+        pinned by the compaction-invariance tests, which compare against
+        the uncompacted engine)."""
         if not compact:
-            return jax.lax.scan(bounce, carry0, jnp.arange(H), length=H,
-                                unroll=unroll)
+            return jax.lax.scan(bounce, carry0, jnp.arange(H), length=H)
         carry1, out0 = bounce(carry0, jnp.int32(0), do_compact=False)
         if H == 1:
             return carry1, jax.tree.map(lambda a: a[None], out0)
         carry_out, outs = jax.lax.scan(bounce, carry1,
-                                       jnp.arange(1, H), length=H - 1,
-                                       unroll=unroll)
+                                       jnp.arange(1, H), length=H - 1)
         outs = jax.tree.map(
             lambda a, b: jnp.concatenate([a[None], b], axis=0), out0,
             outs)

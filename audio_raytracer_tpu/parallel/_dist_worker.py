@@ -8,7 +8,7 @@ initialize the XLA backend too early — ``python -m`` cannot work here).
 Each process:
 
 1. pins the CPU platform with N virtual devices (a stand-in for one
-   host's TPU chips),
+   host's accelerators),
 2. joins the jax.distributed cluster (Gloo collectives over localhost —
    the same code path DCN collectives take on a real multi-host slice),
 3. builds the hosts-major ('rays', 'prims') mesh

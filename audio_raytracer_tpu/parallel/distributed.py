@@ -53,9 +53,7 @@ def initialize(coordinator: str | None = None,
         process_id = int(os.environ["ART_PROCESS_ID"])
 
     if num_processes is None or num_processes <= 1:
-        # Single process; jax.distributed is unnecessary (TPU pods with
-        # standard env vars initialize through jax.distributed's own
-        # auto-detection — call jax.distributed.initialize() directly).
+        # Single process; jax.distributed is unnecessary.
         return False
 
     try:
@@ -160,7 +158,7 @@ def run_two_process_check(ray_count: int = 64, local_devices: int = 4,
 
     This exercises the REAL multi-process path — jax.distributed
     coordination, cross-process (DCN-analog) collectives over the 'rays'
-    axis, within-host collectives over 'prims' — without TPU hardware.
+    axis, within-host collectives over 'prims' — without accelerators.
     Raises on worker failure or result mismatch between the processes'
     collective outcome and expectations; the caller compares against a
     single-process run for shard invariance.

@@ -1,7 +1,7 @@
 """Device-mesh construction + scene padding for primitive sharding.
 
 The reference scales by splitting the ray range over CPU job-worker
-threads (Audio/AudioRayTracer.cs:161; SURVEY.md §2.7). The TPU analog is
+threads (Audio/AudioRayTracer.cs:161; SURVEY.md §2.7). The device analog is
 a 2-D ``Mesh(('rays', 'prims'))``: rays are data-parallel shards, and for
 large collider counts the primitive axis is sharded too, with closest-hit
 merged by mesh collectives (the ring-attention-like axis of this workload).

@@ -4,7 +4,7 @@ The distributed design (SURVEY.md §2.7): rays are data-parallel shards
 (the analog of the reference's thread batches, Audio/AudioRayTracer.cs:161);
 primitives optionally shard over a second mesh axis with closest-hit
 merged by pmin + scan-rank tie-break (ops/backend.PrimShardedBackend).
-Reduce-side accumulators ride XLA collectives over ICI:
+Reduce-side accumulators ride XLA collectives between devices:
 
 - muffle / permeation / echo statistics: psum over 'rays' — the collective
   form of ProcessAudioDataJob.cs:55-75's serial per-batch reduce
@@ -82,15 +82,15 @@ def _settings_from_partials(zero_entries, reverb_total, total_hits,
 
 def make_local_engine(scene_local, backend: str, differentiable=False):
     """Local intersection engine for one shard: 'jnp' (DenseBackend) or
-    'pallas' / 'pallas_interpret' (TPU kernels per shard)."""
+    'pallas' / 'pallas_interpret' (the kernel engine per shard)."""
     if backend == "jnp":
         return DenseBackend(scene_local)
     if backend in ("pallas", "pallas_interpret"):
-        from audio_raytracer_tpu.ops.pallas import make_pallas_backend
+        from audio_raytracer_tpu.ops.pallas import PallasBackend
 
-        return make_pallas_backend(scene_local,
-                                   interpret=(backend == "pallas_interpret"),
-                                   differentiable=differentiable)
+        return PallasBackend(scene_local,
+                             interpret=(backend == "pallas_interpret"),
+                             differentiable=differentiable)
     raise ValueError(f"unknown backend {backend!r}")
 
 
@@ -134,13 +134,12 @@ def make_sharded_forward(cfg: TraceConfig, mesh: jax.sharding.Mesh,
     assert not (return_result and return_ir)
     local_cfg = dataclasses.replace(cfg, num_accum_batches=1)
     prim_sharded = prim_shards > 1
-    # The pallas paths mix varying/unvarying values inside kernel traces
-    # (this JAX version's binop vma rule drops the varying type when one
-    # operand is an unvaried SMEM scalar, breaking fori carry typing on
-    # the compiled Mosaic trace; the HLO interpreter has the same
-    # problem) — disable shard_map's vma checking for them. The jnp tier
-    # type-checks fully. The elided diagnostic returns shard-varying
-    # values through replicated out_specs, so it must skip the check too.
+    # Values computed inside a pallas kernel from its whole-array table
+    # inputs carry no varying-manual-axes type, which breaks the kernel's
+    # fori carry typing — disable shard_map's vma checking for the
+    # kernel engines. The jnp tier type-checks fully. The elided
+    # diagnostic returns shard-varying values through replicated
+    # out_specs, so it must skip the check too.
     check_vma = backend == "jnp" and not elide_collectives
     pvary_axes = ("rays",) if check_vma else ()
     if elide_collectives:

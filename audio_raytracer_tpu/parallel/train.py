@@ -51,8 +51,8 @@ def make_sharded_train_step(cfg: TraceConfig, mesh: jax.sharding.Mesh,
         optimizer = optax.adam(1e-2)
     prim_shards = mesh.shape["prims"]
     prim_sharded = prim_shards > 1
-    # Same condition as sharded.py: BOTH pallas tiers (compiled Mosaic and
-    # the interpreter) break shard_map's vma typing on their fori carries,
+    # Same condition as sharded.py: the kernel engines (compiled and
+    # interpreted) break shard_map's vma typing on their fori carries,
     # so vma checking is only enabled for the pure-jnp engine.
     check_vma = backend == "jnp"
     pvary_axes = ("rays",) if check_vma else ()

@@ -1,12 +1,15 @@
 """Build + load the native C++ scene registry (ctypes binding).
 
 The shared library is compiled from native/scene_registry.cpp on first
-use (g++ only; no external deps) and cached next to the package.
+use (g++ only; no external deps) into ``runtime/_build/``, named by the
+source's content hash: a changed source, or a checkout without the build
+directory, rebuilds.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import pathlib
 import subprocess
@@ -15,30 +18,38 @@ import threading
 _REPO_ROOT = pathlib.Path(__file__).resolve().parents[2]
 _SRC = _REPO_ROOT / "native" / "scene_registry.cpp"
 _BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
-_LIB = _BUILD_DIR / "libaudio_rt_scene.so"
 
 _lock = threading.Lock()
 _lib = None
 
 
-def _compile() -> None:
+def library_path() -> pathlib.Path:
+    """The library built from the current source."""
+    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
+    return _BUILD_DIR / f"libaudio_rt_scene-{digest}.so"
+
+
+def _compile(lib: pathlib.Path) -> None:
     _BUILD_DIR.mkdir(exist_ok=True)
+    # Build under a private name, then rename: concurrent first users
+    # (test workers) never load a half-written library.
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     cmd = ["g++", "-O2", "-shared", "-fPIC", "-std=c++17",
-           str(_SRC), "-o", str(_LIB)]
+           str(_SRC), "-o", str(tmp)]
     subprocess.run(cmd, check=True, capture_output=True)
+    os.replace(tmp, lib)
 
 
 def load() -> ctypes.CDLL:
-    """Load (building if stale) the native registry library."""
+    """Load (building if missing) the native registry library."""
     global _lib
     with _lock:
         if _lib is not None:
             return _lib
-        if (not _LIB.exists()
-                or (_SRC.exists()
-                    and _SRC.stat().st_mtime > _LIB.stat().st_mtime)):
-            _compile()
-        lib = ctypes.CDLL(str(_LIB))
+        path = library_path()
+        if not path.exists():
+            _compile(path)
+        lib = ctypes.CDLL(str(path))
 
         lib.art_registry_create.restype = ctypes.c_void_p
         lib.art_registry_destroy.argtypes = [ctypes.c_void_p]

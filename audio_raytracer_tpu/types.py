@@ -275,21 +275,16 @@ class TraceConfig:
     ir_max_distance: float = 125.0
     # Sort rays alive-first between bounces (a stable partition) so dead
     # lanes pool into ray blocks the kernel tier can skip outright — the
-    # TPU analog of the reference's per-ray early exit
+    # block analog of the reference's per-ray early exit
     # (AudioRaytracerJobBatched.cs:104). Results are identical (each
-    # ray's math is per-lane; outputs are scattered back to original ray
+    # ray's math is per-lane; outputs are gathered back to original ray
     # order). Engaged by ops.trace (the inference path) on backends with
     # supports_block_skip; the differentiable loudness path
     # (models.differentiable.loudness_map) uses only the free dead-block
-    # skip — no reorder — deliberately: the backward of a permutation
-    # GATHER is a permutation SCATTER, and TPU scatter serializes
-    # (~67 ms/bounce at 1M rays), so compaction under jax.grad would
-    # cost far more in the backward than it saves in the forward.
-    # Default
-    # OFF: the reorder moves ~15 [R]-sized arrays per bounce (~100 ms at
-    # 1M rays), which only pays when rays die fast (short max_ray_life /
-    # absorptive scenes); with long-lived rays the free block-level
-    # aliveness skip (always on for kernel backends) is strictly better.
+    # skip — no reorder: the backward of a permutation gather is a
+    # scatter. Default OFF: the reorder moves the ray state every bounce,
+    # which pays only when rays die fast (short max_ray_life /
+    # absorptive scenes).
     compact_rays: bool = False
     # With compact_rays, additionally SKIP the per-bounce inverse
     # -permutation restore of the outputs: TraceResult.echo_distances
@@ -301,8 +296,8 @@ class TraceConfig:
     # bit-identical: those are permutation-invariant reductions, exactly
     # like the reference's EchoRayDistances buffer that only ever feeds
     # ProcessAudioDataJob's sums (Jobs/ProcessAudioDataJob.cs:38-51).
-    # Saves the ~8 ms/bounce restore gather + the inverse-permutation
-    # cumsums at 1M rays. Ignored when collect_debug needs ordered rows.
+    # Saves the restore gather + the inverse-permutation cumsums per
+    # bounce. Ignored when collect_debug needs ordered rows.
     compact_unordered: bool = False
 
     @property

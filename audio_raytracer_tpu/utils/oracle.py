@@ -1,6 +1,6 @@
 """CPU oracle: slow scalar NumPy implementation of the full pipeline.
 
-This is the trusted reference the TPU path must match allclose
+This is the trusted reference the device path must match allclose
 (BASELINE.md "Forward correctness"). It mirrors the reference kernels'
 control flow ray-by-ray, bounce-by-bounce, primitive-by-primitive —
 including scan order, strict-< tie-breaking, epsilon offsets, the

@@ -1,9 +1,9 @@
 """Profiling & metrics.
 
 The reference instruments with editor-only Stopwatches + an FPS HUD
-(Audio/AudioRayTracer.cs:58-59, _Editor/DebugDataDisplay.cs). TPU-side
-the equivalents are jax.profiler traces plus step timing that survives
-the async-dispatch relay (a host transfer is the only true sync)."""
+(Audio/AudioRayTracer.cs:58-59, _Editor/DebugDataDisplay.cs). Here the
+equivalents are jax.profiler traces plus wall-clock step timing around
+work that ends in ``jax.block_until_ready``."""
 
 from __future__ import annotations
 
@@ -11,20 +11,12 @@ import contextlib
 import time
 
 import jax
-import numpy as np
-
-
-def sync(tree) -> float:
-    """Force completion of ``tree`` via a host transfer of one leaf and
-    return that leaf's first element. block_until_ready alone can return
-    before compute completes on relayed device platforms."""
-    leaf = jax.tree.leaves(tree)[0]
-    return float(np.asarray(leaf).ravel()[0])
 
 
 @contextlib.contextmanager
 def step_timer(results: dict, key: str):
-    """Wall-time a step into results[key] (call sync() inside the block)."""
+    """Wall-time a step into results[key] (end the block with
+    jax.block_until_ready on the step's outputs)."""
     t0 = time.perf_counter()
     yield
     results[key] = results.get(key, 0.0) + (time.perf_counter() - t0)
@@ -62,14 +54,12 @@ class ThroughputMeter:
 
 
 def summarize_trace(log_dir: str, top: int = 20) -> list[tuple[str, float]]:
-    """Aggregate TensorCore op durations from a jax.profiler trace.
+    """Aggregate device op durations from a jax.profiler trace.
 
-    Parses the perfetto JSON (``vm.trace.json.gz``) written under
+    Parses the perfetto JSON (``*.trace.json.gz``) written under
     ``log_dir`` by ``device_trace`` and returns [(op_name, total_ms)]
     sorted descending — Pallas kernels appear as ``closed_call.*``,
-    XLA fusions as ``fusion.*``. The practical way to attribute step
-    time on relayed platforms where host-side timing is dominated by
-    the ~130 ms transfer round trip.
+    XLA fusions as ``fusion.*``.
     """
     import collections
     import glob
@@ -82,7 +72,7 @@ def summarize_trace(log_dir: str, top: int = 20) -> list[tuple[str, float]]:
         raise FileNotFoundError(f"no trace.json.gz under {log_dir}")
     with gzip.open(paths[-1]) as f:
         events = json.load(f)["traceEvents"]
-    # TensorCore events carry pid of the device track; find the pid
+    # Device events carry the pid of the device track; find the pid
     # owning the longest total duration of complete ('X') events that
     # look like XLA ops (host tracks dominate raw counts, not XLA names).
     per_pid = collections.Counter()

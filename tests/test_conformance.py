@@ -1,6 +1,6 @@
 """BASELINE conformance runner (audio_raytracer_tpu.conformance): the
-five enumerated configs must PASS through the one-command entry point
-(VERDICT r4 ask #6). Gate depth lives in the runner itself; this test
+five enumerated configs must PASS through the one-command entry point.
+Gate depth lives in the runner itself; this test
 keeps the runner green in the CI lane (--fast sizes)."""
 
 import pytest

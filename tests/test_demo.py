@@ -145,7 +145,7 @@ class TestShippedScenes:
 
 
 class TestSceneValidation:
-    """Authoring-time failsafe (VERDICT r4 #8 / AudioCollider.cs:95-118):
+    """Authoring-time failsafe (AudioCollider.cs:95-118):
     malformed scene documents fail fast with a path-precise error."""
 
     def _base(self):
@@ -257,7 +257,7 @@ class TestScenePlayer:
 
     def test_listener_waypoint_path(self):
         # "listener.waypoints" scripts the listener's movement (the
-        # headless PlayerController analog, VERDICT r4 missing #2).
+        # headless PlayerController analog).
         doc = {
             "trace": {"ray_count": 32, "max_bounces": 1},
             "listener": {"position": [0, 0, 0], "speed": 10.0,
@@ -277,8 +277,8 @@ class TestScenePlayer:
         loaded.registry.close()
 
     def test_viz_every_dumps_live_frames(self, tmp_path):
-        # In-loop gizmo dumps while the sim runs (VERDICT r4 missing #1:
-        # the reference's gizmos render live, AudioRayTracer.cs:291-355).
+        # In-loop gizmo dumps while the sim runs (the reference's gizmos
+        # render live, AudioRayTracer.cs:291-355).
         loaded = build_registry(sample_scene_dict(ray_count=32,
                                                   max_bounces=1))
         out = tmp_path / "live.png"
@@ -324,10 +324,9 @@ class TestScenePlayer:
 
     def test_wav_reverb_tail_audible(self, tmp_path):
         """The IR-driven tail must actually change the rendered audio
-        vs a tail-less render of the same history (VERDICT r2 missing
-        #1: the reference delegates its audible reverb to Unity's
-        AudioReverbFilter; this framework renders it from the traced
-        impulse response)."""
+        vs a tail-less render of the same history (the reference
+        delegates its audible reverb to Unity's AudioReverbFilter; this
+        framework renders it from the traced impulse response)."""
         import wave
 
         loaded = build_registry(sample_scene_dict(ray_count=64,
@@ -358,7 +357,7 @@ class TestScenePlayer:
 
 
 class TestMovingTarget:
-    """Moving audio source, end to end (VERDICT r3 missing #1 / ask #4):
+    """Moving audio source, end to end (TargetAnimation):
     a TargetAnimation drives registry.set_target_position each frame,
     the traced perceived_position follows, and the rendered WAV audibly
     pans as the source crosses the listener."""
@@ -501,10 +500,9 @@ class TestTrainMaterialsCLI:
 
 
 class TestRecoverPoseCLI:
-    """--recover-pose: the pose-gradient workload as a tool (VERDICT r4
-    ask #7). Convergence itself is pinned in
-    tests/test_gradients.py::TestPoseRecovery; here the CLI must run,
-    descend, and report."""
+    """--recover-pose: the pose-gradient workload as a tool. Convergence
+    itself is pinned in tests/test_gradients.py::TestPoseRecovery; here
+    the CLI must run, descend, and report."""
 
     def test_listener_mode_descends(self, monkeypatch, capsys):
         import runpy

@@ -126,23 +126,23 @@ class TestForwardParity:
 
 
 class TestFixedSeedExactRegression:
-    """Exact-count pin on one committed scene (VERDICT r3 weak #5).
+    """Exact-count pin on one committed scene.
 
     The statistical parity gates above admit up to 0.5% echo mismatch
     (razor-edge f32-vs-f64 trajectory divergence vs the oracle); this
     pin freezes one fixed seed's exact integer outputs so silent drift
     INSIDE that tolerance band — a changed tie-break, an epsilon tweak,
     a reordered reduction — fails loudly. Each engine is pinned with its
-    OWN recorded values (the kernel tier's approx-reciprocal slab tests
-    flip a handful of razor-edge occlusions vs the jnp formulas — a
-    known, fuzz-bounded divergence, itself worth pinning).
+    OWN recorded values (the kernels' formulas differ from the jnp grid's
+    — sign-domain sphere occlusion, baked rotation matrices — so razor
+    -edge lanes may flip between engines; on this seed they agree).
     """
 
     # [batch, target] counts / nonzero entries / rays-by-bounce-count.
     PINS = {
         "jnp": ([[42, 58], [26, 25]], 88, [176, 57, 16, 4, 0, 3]),
-        "pallas_interpret": ([[43, 60], [27, 26]], 92,
-                             [176, 57, 14, 5, 1, 3]),
+        "pallas_interpret": ([[42, 58], [26, 25]], 88,
+                             [176, 57, 16, 4, 0, 3]),
     }
 
     def _check(self, backend):

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from audio_raytracer_tpu.models.raytracer import forward, random_scene
+from audio_raytracer_tpu.ops.backend import CHUNK
 from audio_raytracer_tpu.ops.fibonacci import fibonacci_directions
 from audio_raytracer_tpu.types import TraceConfig
 
@@ -79,25 +80,26 @@ def test_random_shape_parity():
 
 
 def test_gradient_shape_edges():
-    """Materials-gradient parity (dense AD vs the hand-closed pallas
-    adjoints) at adversarial shapes: zero-count types, single prims,
-    odd ray counts — guards the bwd kernels' padding/masking edges."""
+    """Materials-gradient parity (dense AD vs the kernel tier) at
+    adversarial shapes: zero-count types, single prims, odd ray counts —
+    guards the kernels' padding edges and the custom VJP's wiring."""
     from audio_raytracer_tpu.models.differentiable import (
         Loudness,
         SceneParams,
         loudness_loss,
     )
-    from audio_raytracer_tpu.ops.pallas import make_pallas_backend
+    from audio_raytracer_tpu.ops.pallas import PallasBackend
 
     grad_cases = [
         (0, 10, 0, 2, 65, 2),   # AABB-only, odd rays
         (5, 0, 3, 1, 40, 2),    # no AABBs
         (1, 1, 1, 3, 96, 3),    # single prim each
-        # DENS_CHUNK (64) boundary edges of the phase-split adjoint:
-        # one exact full chunk, and counts one past the boundary
-        # (65 -> 2 chunks with 63 guaranteed-miss pad slots).
-        (0, 64, 0, 1, 40, 1),   # exactly one full chunk
-        (65, 3, 2, 2, 48, 2),   # sphere stream crosses the boundary
+        # Edges of the plain fold's primitive chunks (ops.backend.CHUNK),
+        # whose VJP is the kernel tier's chord backward: exactly one
+        # chunk (one grid), and one sphere past it (two sphere chunks,
+        # the second padded with inactive slots).
+        (0, CHUNK, 0, 1, 40, 1),      # exactly one full chunk
+        (CHUNK + 1, 3, 2, 2, 48, 2),  # sphere stream crosses the boundary
     ]
     for i, (ns, na, no, T, R, B) in enumerate(grad_cases):
         scene = random_scene(jax.random.key(200 + i), num_spheres=ns,
@@ -115,7 +117,7 @@ def test_gradient_shape_edges():
                                           cfg, target)
         g_pal = jax.grad(loudness_loss)(
             params, scene, origin, dirs, cfg, target,
-            backend_fn=lambda s: make_pallas_backend(
+            backend_fn=lambda s: PallasBackend(
                 s, interpret=True, differentiable=True))
         for a, b in zip(jax.tree.leaves(g_dense), jax.tree.leaves(g_pal)):
             np.testing.assert_allclose(
@@ -124,16 +126,16 @@ def test_gradient_shape_edges():
 
 
 def test_dens_only_adjoint_matches_full_for_materials():
-    """pose_grads=False (the cheap density-only chord adjoint) must give
-    IDENTICAL material gradients to the full adjoint — only the (dead)
-    ray-pose cotangents differ. This is the invariant that justifies
+    """pose_grads=False (ray gradients of the chord backward stopped)
+    must give IDENTICAL material gradients to the full backward — only
+    the (dead) ray-pose cotangents differ. This is the invariant that justifies
     benching materials training with the cheap backward."""
     from audio_raytracer_tpu.models.differentiable import (
         Loudness,
         SceneParams,
         loudness_loss,
     )
-    from audio_raytracer_tpu.ops.pallas import make_pallas_backend
+    from audio_raytracer_tpu.ops.pallas import PallasBackend
 
     scene = random_scene(jax.random.key(77), num_spheres=5, num_aabbs=8,
                          num_obbs=5, num_targets=2, extent=15.0,
@@ -149,7 +151,7 @@ def test_dens_only_adjoint_matches_full_for_materials():
     def grad_with(pose_grads):
         return jax.grad(loudness_loss)(
             params, scene, origin, dirs, cfg, target,
-            backend_fn=lambda s: make_pallas_backend(
+            backend_fn=lambda s: PallasBackend(
                 s, interpret=True, differentiable=True,
                 pose_grads=pose_grads))
 
@@ -161,18 +163,19 @@ def test_dens_only_adjoint_matches_full_for_materials():
 
 
 def test_pose_grads_across_chunk_boundary():
-    """FULL pose-grad adjoint (ray cotangents carried through the
-    phase-split chunk loops) vs dense autodiff with a primitive stream
-    that crosses the DENS_CHUNK (64) boundary — guards the carry
-    threading of fused.multi_chord_bwd_kernel's chunked _stream."""
+    """Pose gradients of the kernel tier (ray cotangents of the chord
+    backward kept) vs dense autodiff with an AABB stream that crosses a
+    chunk boundary of the plain fold — guards the carry threading of the
+    fold's scan in the custom VJP's backward."""
     from audio_raytracer_tpu.models.differentiable import (
         Loudness,
         SceneParams,
         loudness_loss,
     )
-    from audio_raytracer_tpu.ops.pallas import make_pallas_backend
+    from audio_raytracer_tpu.ops.pallas import PallasBackend
 
-    scene = random_scene(jax.random.key(88), num_spheres=3, num_aabbs=70,
+    scene = random_scene(jax.random.key(88), num_spheres=3,
+                         num_aabbs=CHUNK + 10,
                          num_obbs=2, num_targets=2, extent=15.0,
                          size_range=(1.5, 4.0))
     cfg = TraceConfig(ray_count=48, max_bounces=2, max_ray_life=90.0)
@@ -185,7 +188,7 @@ def test_pose_grads_across_chunk_boundary():
     def loss(params, origin):
         return loudness_loss(
             params, scene, origin, dirs, cfg, target,
-            backend_fn=lambda s: make_pallas_backend(
+            backend_fn=lambda s: PallasBackend(
                 s, interpret=True, differentiable=True, pose_grads=True))
 
     origin = jnp.asarray([0.2, 0.1, -0.3])

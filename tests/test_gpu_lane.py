@@ -1,13 +1,12 @@
-"""Hardware lane: compiled Mosaic kernels on the real TPU chip.
+"""Hardware lane: compiled Triton-route kernels on an NVIDIA GPU.
 
-Run with ``ART_TPU_TESTS=1 python -m pytest -m tpu -q``. Everything here
-executes the COMPILED Pallas path (interpret=False) — the thing that
-actually ships — so a kernel that misbehaves only under Mosaic lowering
-(layouts, SMEM bounds, vregs) fails this lane even though the CPU
-interpret suite stays green. Covers VERDICT r1 weak #3/#5: kernel parity
-vs DenseBackend on device, a sharded step on the single chip, the
-orchestrator tick with the host-transfer sentinel, and the bf16 tier's
-Mosaic lowering (its cmp/select/sqrt/div f32 islands).
+Run with ``ART_GPU_TESTS=1 python -m pytest -m gpu -q`` (chip_smoke.py
+runs it as its last phase). Everything here executes the COMPILED Pallas
+path (interpret=False) — the thing that actually ships — so a kernel
+that misbehaves only when Triton compiles it fails this lane even though
+the CPU interpret suite stays green: kernel parity vs DenseBackend on
+the device, a sharded step on one card, the orchestrator tick, and the
+bf16 tier's lowering. Without a GPU every test here skips.
 """
 
 import dataclasses
@@ -23,20 +22,16 @@ from audio_raytracer_tpu.ops.fibonacci import fibonacci_directions
 from audio_raytracer_tpu.ops.pallas import PallasBackend
 from audio_raytracer_tpu.types import TraceConfig
 
-pytestmark = pytest.mark.tpu
+pytestmark = pytest.mark.gpu
 
 R = 8192
 P = 128
 
 
-def _on_tpu():
-    return jax.devices()[0].platform != "cpu"
-
-
 @pytest.fixture(scope="module", autouse=True)
-def _require_device():
-    if not _on_tpu():
-        pytest.skip("no TPU device on this host")
+def _require_gpu():
+    if jax.devices()[0].platform != "gpu":
+        pytest.skip("needs an NVIDIA GPU (run with ART_GPU_TESTS=1 -m gpu)")
 
 
 @pytest.fixture(scope="module")
@@ -54,7 +49,7 @@ def rays():
 
 def test_compiled_closest_hit_matches_dense(scene, rays):
     o, d = rays
-    be = PallasBackend(scene)  # interpret=False: real Mosaic lowering
+    be = PallasBackend(scene)  # interpret=False: compiled by Triton
     t, rank = jax.jit(be.local_closest)(o, d)
     hit_d, t_d, _ = DenseBackend(scene).closest_hit(o, d)
     t, t_d = np.asarray(t), np.asarray(t_d)
@@ -75,7 +70,7 @@ def test_compiled_multi_any_hit_matches_dense(scene, rays):
                                               init))(o)
     occ_d = dense.multi_occluded(o, dirs, limits, skips, init)
     agree = (np.asarray(occ) == np.asarray(occ_d)).mean()
-    # Compiled f32 kernels vs the dense XLA grid may disagree only on
+    # Compiled f32 kernels vs the XLA grid may disagree only on
     # razor's-edge lanes (different fma contractions).
     assert agree > 0.9999, agree
 
@@ -102,8 +97,8 @@ def test_compiled_forward_pallas_vs_dense(scene):
     res_j, set_j = jax.jit(
         lambda o, d, s: forward(o, d, s, cfg, backend="jnp"))(
             origin, dirs, scene)
-    # On device the compiled kernels and the dense XLA grid contract
-    # fma differently; razor's-edge visibility booleans may flip on a
+    # On device the compiled kernels and the XLA grid contract fma
+    # differently; razor's-edge visibility booleans may flip on a
     # handful of (ray, bounce) lanes.
     mh_p = np.asarray(res_p.muffle_hits).astype(np.int64)
     mh_j = np.asarray(res_j.muffle_hits).astype(np.int64)
@@ -118,16 +113,16 @@ def test_compiled_forward_pallas_vs_dense(scene):
                                rtol=0.02, atol=1.0)
     # Settings tolerance matches the muffle_hits bound above: up to ~5
     # edge-flipped (ray, bounce) visibility lanes out of R*H move muffle
-    # by 5 / (R * H) ~= 3e-4 (the Newton-refined fast reciprocal rounds
-    # differently than XLA's divide on razor's-edge slab lanes).
+    # by 5 / (R * H) ~= 3e-4.
     np.testing.assert_allclose(np.asarray(set_p.muffle),
                                np.asarray(set_j.muffle),
                                rtol=1e-4, atol=5e-4)
 
 
 def test_compiled_bf16_tier_lowers_and_runs(scene, rays):
-    """The bf16 tier's Mosaic lowering (f32 cmp/select/sqrt/div islands,
-    f32-routed scalar negation) — breaks loudly if libtpu regresses."""
+    """The bf16 tier compiled by Triton (bf16 geometry arithmetic, f32
+    reciprocals / square roots / decisions) — breaks loudly if the
+    lowering regresses."""
     o, d = rays
     be = PallasBackend(scene, compute_dtype=jnp.bfloat16)
     t16, _ = jax.jit(be.local_closest)(o, d)
@@ -148,7 +143,7 @@ def test_compiled_bf16_tier_lowers_and_runs(scene, rays):
 
 
 def test_sharded_step_on_single_chip(scene):
-    """shard_map'd forward over a 1x1 device mesh on the real chip."""
+    """shard_map'd forward over a 1x1 device mesh on one card."""
     from audio_raytracer_tpu.parallel.mesh import make_mesh
     from audio_raytracer_tpu.parallel.sharded import make_sharded_forward
 
@@ -169,7 +164,7 @@ def test_sharded_step_on_single_chip(scene):
 
 
 def test_compiled_gradient_step(scene):
-    """Differentiable tier (custom-VJP chord kernels) compiled on chip."""
+    """Differentiable tier (chord kernel + plain-fold VJP) compiled."""
     from audio_raytracer_tpu.models.differentiable import (
         Loudness,
         SceneParams,
@@ -196,25 +191,21 @@ def test_compiled_gradient_step(scene):
 
 
 def test_compiled_gradient_parity_vs_dense(scene):
-    """NUMERIC adjoint parity on the real chip (VERDICT r4 ask #3): the
-    compiled Mosaic custom-VJP kernels — materials adjoint AND the full
-    pose_grads tier (ray cotangents + rotation pullbacks) — must match
-    the DenseBackend jnp autodiff gradients on the same f32 workload,
-    not merely be finite. The gate splits by gradient PATH:
+    """NUMERIC gradient parity on the card: the compiled kernel tier —
+    materials AND the pose_grads tier — must match the DenseBackend
+    autodiff gradients on the same f32 workload, not merely be finite.
+    The gate splits by gradient PATH:
 
-    - DENSITY grads flow through the hand-closed chord adjoint kernel
-      (fused.multi_chord_bwd) and must match tightly: allclose at
-      rtol 2e-3 / atol 1e-5 AND relative L2 < 1e-4 (measured ~5e-7 —
-      a Mosaic-lowering numeric bug in the adjoint fails this hard).
+    - DENSITY grads flow through the chord kernel's custom VJP (the plain
+      chord fold's VJP) and must match tightly: allclose at rtol 2e-3 /
+      atol 1e-5 AND relative L2 < 1e-4.
     - ABSORPTION / ECHO / pose grads route through the closest-hit
       WINNER selection: compiled kernels contract fma differently than
-      the dense XLA grid, so a razor-edge closest-hit tie can flip
-      which primitive wins a bounce for a handful of rays, re-routing
-      those rays' whole contribution between primitives. The atol is
-      therefore a few single-ray contribution quanta (measured quantum
-      ~4e-5 at R=2048: one flipped ray moved exactly that much):
-      allclose at rtol 2e-3 / atol 1e-4. Measured divergence: 0-2
-      entries per leaf, all < 4.1e-5 absolute.
+      the XLA grid, so a razor-edge closest-hit tie can flip which
+      primitive wins a bounce for a handful of rays, re-routing those
+      rays' whole contribution between primitives. The atol is
+      therefore a few single-ray contribution quanta (~4e-5 at R=2048):
+      allclose at rtol 2e-3 / atol 1e-4.
     """
     from audio_raytracer_tpu.models.differentiable import (
         Loudness,
@@ -270,10 +261,10 @@ def test_compiled_gradient_parity_vs_dense(scene):
 
 def test_sharded_train_step_compiled_pallas(scene):
     """shard_map x COMPILED Pallas x backward on the 1x1 device mesh —
-    the pod-scale gradient composition (BASELINE configs 4+5) that
-    VERDICT r2 weak #3 found untested: make_sharded_train_step with
-    backend='pallas' must trace (check_vma disabled for kernel tiers),
-    compile through Mosaic, and produce finite moving gradients."""
+    the multi-card gradient composition (BASELINE configs 4+5):
+    make_sharded_train_step with backend='pallas' must trace (check_vma
+    disabled for kernel tiers), compile, and produce finite moving
+    gradients."""
     from audio_raytracer_tpu.models.differentiable import (
         Loudness,
         SceneParams,
@@ -304,7 +295,7 @@ def test_sharded_train_step_compiled_pallas(scene):
 
 
 def test_compacted_forward_compiled_matches_uncompacted(scene):
-    """compact_rays with COMPILED Mosaic kernels: the alive-first
+    """compact_rays with COMPILED kernels: the alive-first
     reorder + dead-block skip must be invisible vs the same compiled
     kernels without it (short ray life so lanes actually die)."""
     origin = jnp.array([0.2, -0.3, 0.1])
@@ -329,7 +320,7 @@ def test_compacted_forward_compiled_matches_uncompacted(scene):
 
 
 def test_unordered_compaction_compiled_invariants(scene):
-    """compact_unordered with COMPILED Mosaic kernels (the production
+    """compact_unordered with COMPILED kernels (the production
     bench tier): per-bounce outputs arrive permuted within columns, but
     muffle_hits, per-column echo sums, first_hit_t, and settings must
     be identical to the ordered compiled tier."""
@@ -362,9 +353,9 @@ def test_unordered_compaction_compiled_invariants(scene):
 
 
 def test_orchestrator_tick_on_device():
-    """AsyncRaytraceLoop on the real device: the host-transfer sentinel
-    must produce an honest raytracer_ms and eventually harvest
-    (VERDICT r1 weak #5 'done' criterion)."""
+    """AsyncRaytraceLoop on the card: frames dispatch asynchronously,
+    complete (is_ready / block_until_ready), and harvest with a measured
+    dispatch-to-harvest raytracer_ms."""
     import time
 
     from audio_raytracer_tpu.runtime import AsyncRaytraceLoop, SceneRegistry
@@ -392,7 +383,7 @@ def test_orchestrator_tick_on_device():
             time.sleep(0.01)
         assert loop.frames_harvested >= 2, (ticks, loop.frames_dispatched)
         assert settings is not None
-        assert loop.raytracer_ms > 0.0  # honest sentinel-measured latency
+        assert loop.raytracer_ms > 0.0
         m = np.asarray(settings.muffle)
         assert np.isfinite(m).all() and (m >= 0).all() and (m <= 1).all()
         # The impulse response rode along with the harvest (feeds the
@@ -406,25 +397,16 @@ def test_orchestrator_tick_on_device():
         reg.close()
 
 
-def test_chunked_backend_compiled_beyond_smem():
-    """ChunkedPallasBackend with COMPILED Mosaic kernels at ~36K mixed
-    primitives (>> the ~16K SMEM budget) on the real chip: the
-    single-chip answer to the reference's unbounded registry growth
-    (AudioColliderManager.cs:42-62). Parity vs the dense jnp tier on a
-    subsample of rays."""
-    from audio_raytracer_tpu.ops.backend import DenseBackend
-    from audio_raytracer_tpu.ops.pallas import (
-        ChunkedPallasBackend,
-        make_pallas_backend,
-    )
-
+def test_large_scene_compiled():
+    """~36K mixed primitives through the COMPILED kernels (no per-call
+    primitive cap: tables live in device memory) against the plain
+    engine's chunked fold on a subsample of rays — the single-card
+    answer to the reference's unbounded registry growth
+    (AudioColliderManager.cs:42-62)."""
     big = random_scene(jax.random.key(11), num_spheres=12_000,
                        num_aabbs=12_000, num_obbs=12_000, num_targets=2,
                        extent=120.0, size_range=(0.5, 3.0))
-    be = make_pallas_backend(big)
-    assert isinstance(be, ChunkedPallasBackend)
-    assert be.num_chunks >= 3
-
+    be = PallasBackend(big)
     Rs = 8192
     o = jnp.zeros((Rs, 3)) + jnp.asarray([0.3, -0.2, 0.4])
     d = fibonacci_directions(Rs)
@@ -447,7 +429,7 @@ def test_chunked_backend_compiled_beyond_smem():
 
 def test_reverb_tail_dsp_on_device():
     """The IR-driven convolution tail (rfft/irfft overlap-add) lowers
-    and runs on the real chip, matching the CPU NumPy oracle."""
+    and runs on the card, matching the CPU NumPy oracle."""
     import dataclasses as dc
 
     from audio_raytracer_tpu.models.spatializer import (
@@ -487,14 +469,10 @@ def test_reverb_tail_dsp_on_device():
     assert float(jnp.abs(state2.reverb_tail).sum()) > 0.0
 
 
-def test_orchestrator_survives_growth_past_smem_budget():
-    """Live registry growth across the SMEM boundary: the reference's
-    registry grows without limit (AudioColliderManager.cs:42-62); here
-    a snapshot that outgrows the ~16K-primitive budget must re-trace
-    onto the chunked backend and keep ticking — no assert, no crash."""
-    import time
-
-    from audio_raytracer_tpu.ops.pallas.chunked import num_chunks_required
+def test_orchestrator_survives_registry_growth():
+    """Live registry growth from 64 to ~4K colliders: the reference's
+    registry grows without limit (AudioColliderManager.cs:42-62); the
+    grown snapshot re-traces (new padded shapes) and keeps ticking."""
     from audio_raytracer_tpu.runtime import AsyncRaytraceLoop, SceneRegistry
 
     reg = SceneRegistry()
@@ -510,24 +488,14 @@ def test_orchestrator_survives_growth_past_smem_budget():
         s_small = loop.tick(np.zeros(3))
         s_small = loop.tick(np.zeros(3))
         assert s_small is not None
+        n_small = reg.snapshot().num_primitives
 
-        # Grow past the budget (pow2 snapshot padding: jumping to 64K
-        # AABBs -> needs multiple SMEM chunks).
-        centers = rng.uniform(-60, 60, (60_000, 3))
-        halves = rng.uniform(0.5, 2.0, (60_000, 3))
-        for c, h in zip(centers[:60_000:16], halves[:60_000:16]):
-            reg.add_aabb(c, h)  # 3750 adds -> snapshot pads to 4096
-        snap = reg.snapshot()
-        # Keep the growth bounded for test time but confirm the chunk
-        # logic engages at this padded size or force it by adding more.
-        while num_chunks_required(snap) < 2:
-            for c, h in zip(rng.uniform(-60, 60, (4096, 3)),
-                            rng.uniform(0.5, 2.0, (4096, 3))):
-                reg.add_aabb(c, h)
-            snap = reg.snapshot()
-        assert num_chunks_required(snap) >= 2
+        for c, h in zip(rng.uniform(-60, 60, (3750, 3)),
+                        rng.uniform(0.5, 2.0, (3750, 3))):
+            reg.add_aabb(c, h)  # snapshot pads to 4096
+        assert reg.snapshot().num_primitives > 16 * n_small
 
-        s_big = loop.tick(np.zeros(3))  # re-traces onto ChunkedPallasBackend
+        s_big = loop.tick(np.zeros(3))  # re-traces at the grown shapes
         s_big = loop.tick(np.zeros(3))
         m = np.asarray(s_big.muffle)
         assert np.isfinite(m).all() and (m >= 0).all() and (m <= 1).all()

@@ -200,7 +200,7 @@ def room_scene(enable_x64):
 
 class TestPoseRecovery:
     """North star: "gradients flow to source/listener poses" — recovery
-    is the proof they are USEFUL, not just finite (VERDICT r4 ask #7).
+    is the proof they are USEFUL, not just finite.
     A single recording's scalars cannot pin a 3-D pose (measured: the
     optimizer matches them ~1.3 units from truth), so source recovery
     triangulates from multiple known listener positions and listener

@@ -144,8 +144,8 @@ class TestForwardValueUnchanged:
 
 class TestDensOnlyAdjoint:
     def test_dens_only_matches_full_adjoint(self, setup):
-        """pose_grads=False runs the density-only chord backward kernel;
-        material gradients must match the full hand-closed adjoint (ray
+        """pose_grads=False stops the chord backward's ray gradients;
+        material gradients must match the full backward (ray
         cotangents are dead in materials-only training)."""
         scene, cfg, origin, dirs, target = setup
         params = SceneParams.from_scene(scene)

@@ -175,11 +175,11 @@ class TestAsyncLoop:
         assert float(behind.muffle[0]) != float(moved.muffle[0])
 
     def test_meshed_loop_matches_dense_and_tracks_mutations(self, reg):
-        # The serving loop over a ('rays','prims') device mesh (VERDICT
-        # r4 ask #5): the live orchestrator composed with the parallel
-        # tier, with registry mutations flowing through mid-run — the
-        # reference's driver runs the WHOLE job system
-        # (Audio/AudioRayTracer.cs:92-238); this is its sharded analog.
+        # The serving loop over a ('rays','prims') device mesh: the live
+        # orchestrator composed with the parallel tier, with registry
+        # mutations flowing through mid-run — the reference's driver
+        # runs the WHOLE job system (Audio/AudioRayTracer.cs:92-238);
+        # this is its sharded analog.
         import dataclasses
 
         import jax
